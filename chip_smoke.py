@@ -20,7 +20,10 @@ runs these phases in order, one JSON line each; any failure exits non-zero:
            commit certificates of 64 slots through combine_batch and
            verify_batch_certs; every verdict, certificate and bad-share list
            equals the host scalar backend's, the kernel was launched on
-           every step, nothing degraded and the device breaker is closed;
+           every step, nothing degraded or fell back to the host (the
+           SigManager's and the multisig verifier's counters, and the
+           breaker: no failure, one success per launch) and the device
+           breaker is closed;
   rate     the kernel alone (CUDA events, after warm-up) at B = 256, 1024
            and 16384, the host prepare_batch time at the same B and the
            plain version's time at B=1024;
@@ -249,6 +252,9 @@ def phase_plane(torch, dev, num_pp: int = 8, slots: int = 64) -> dict:
     want_pp = [host_sm.verify_batch(reqs) for reqs in pps]
     host_pp_s = time.monotonic() - t_host
 
+    breaker = device_breaker()
+    breaker.reset()
+    br0 = breaker.snapshot()
     kc.reset_launches()
     flight.kernel_profiler().reset()
     sm = SigManager(ck.for_node(0), batch_fn=crypto_cuda.verify_batch_mixed,
@@ -307,6 +313,7 @@ def phase_plane(torch, dev, num_pp: int = 8, slots: int = 64) -> dict:
                   kc.LAUNCHES["ed25519_verify"] - before, certs_s * 1e3))
     want_certs = host_v.verify_batch_certs(certs)
     launches = dict(kc.LAUNCHES)
+    br1 = breaker.snapshot()
 
     counters = sm.metrics.snapshot()["counters"]
     profile = flight.kernel_profiler().snapshot()
@@ -328,7 +335,14 @@ def phase_plane(torch, dev, num_pp: int = 8, slots: int = 64) -> dict:
            "degraded_verifies": counters["degraded_verifies"],
            "scalar_fallbacks": counters["scalar_fallbacks"],
            "batched_verifies": counters["batched_verifies"],
-           "breaker": device_breaker().state,
+           "breaker": br1["state"],
+           # every outermost device section is one ed25519 launch here; a
+           # fault the host tier answered shows as a breaker failure and in
+           # the multisig verifier's `degraded` count, not in the verdicts
+           "breaker_successes": br1["successes"] - br0["successes"],
+           "breaker_failures": br1["failures"] - br0["failures"],
+           "breaker_fast_fails": br1["fast_fails"] - br0["fast_fails"],
+           "multisig_degraded": dev_v.degraded,
            "profile": profile.get("ed25519")}
     emit(out)
     problems = []
@@ -342,6 +356,15 @@ def phase_plane(torch, dev, num_pp: int = 8, slots: int = 64) -> dict:
         problems.append(f"a step ran without a kernel launch: {steps}")
     if out["degraded_verifies"] or out["scalar_fallbacks"]:
         problems.append("the device path degraded or fell back")
+    if out["multisig_degraded"]:
+        problems.append("the multisig verifier fell back to the host "
+                        f"{out['multisig_degraded']} times")
+    if out["breaker_failures"] or out["breaker_fast_fails"]:
+        problems.append(f"device breaker recorded {out['breaker_failures']} "
+                        f"failures, {out['breaker_fast_fails']} fast-fails")
+    if out["breaker_successes"] != launches["ed25519_verify"]:
+        problems.append(f"{out['breaker_successes']} device sections "
+                        f"succeeded for {launches['ed25519_verify']} launches")
     if out["breaker"] != "closed":
         problems.append(f"device breaker {out['breaker']}")
     if not out["profile"]:

@@ -282,9 +282,42 @@ def test_raising_kernel_degrades_to_scalar_tier(both_keys, multisig,
                                    pcs.public_key, pcs.share_public_keys)
     assert pv.combine_batch(jobs) == \
         pcs.create_threshold_verifier().combine_batch(jobs)
-    assert C.CudaEd25519Verifier(port.replica_pubkeys[0]).verify_batch(
-        [(b"x", b"\0" * 64)]) == [False]
+    assert pv.degraded >= 1
+    ev = C.CudaEd25519Verifier(port.replica_pubkeys[0])
+    assert ev.verify_batch([(b"x", b"\0" * 64)]) == [False]
+    assert ev.degraded == 1
     assert calls["kernel"] == threshold and calls["plain"] == 0
+
+
+@pytest.mark.parametrize("entry", ["combine_batch", "verify_batch_certs"])
+def test_one_kernel_fault_is_counted(multisig, monkeypatch, entry):
+    """A kernel fault after the launch is answered alike by the host
+    tier; the verifier's `degraded` counter and the breaker's failure
+    count are what tell the fallback apart from a device answer."""
+    rcs, pcs, jobs, digests = multisig
+    pv = C.make_threshold_verifier("multisig-ed25519", 3, 4,
+                                   pcs.public_key, pcs.share_public_keys)
+    host = pcs.create_threshold_verifier()
+    fused = pv.combine_batch(jobs)
+    certs = [(digests[0], fused[0][1]), (digests[2], fused[2][1])]
+    assert pv.degraded == 0
+    real = ops.verify_kernel
+
+    def faulty(*args):
+        real(*args)
+        raise RuntimeError("injected fault after the launch")
+
+    monkeypatch.setattr(ops, "verify_kernel", faulty)
+    breaker = device_breaker()
+    before = breaker.snapshot()
+    if entry == "combine_batch":
+        assert pv.combine_batch(jobs) == host.combine_batch(jobs)
+    else:
+        # 6 shares ride the device; each cert's fallback (k=3) the host
+        monkeypatch.setattr(pv, "min_device_batch", 4)
+        assert pv.verify_batch_certs(certs) == host.verify_batch_certs(certs)
+    assert breaker.snapshot()["failures"] > before["failures"]
+    assert pv.degraded >= 1
 
 
 def test_verify_batch_mixed_routes_by_scheme(both_keys):

@@ -16,7 +16,8 @@ batched Ed25519 kernel (ops/ed25519.py → ops/ed25519_cuda.py):
 
 A device failure (or an OPEN breaker) degrades to the host scalar engine
 at the same places as the reference; the breaker recorded the failure at
-the kernel seam. The BLS classes and the ECDSA device routing wait for
+the kernel seam, and the verifier counts the batch in its `degraded`
+counter, so a run can tell a fallback from a device answer. The BLS classes and the ECDSA device routing wait for
 their slices.
 """
 from __future__ import annotations
@@ -79,6 +80,7 @@ class CudaEd25519Verifier(IVerifier):
 
     def __init__(self, public_key_bytes: bytes):
         self.public_key_bytes = public_key_bytes
+        self.degraded = 0          # device batches answered by the host
 
     def verify(self, data: bytes, sig: bytes) -> bool:
         return self.verify_batch([(data, sig)])[0]
@@ -92,6 +94,7 @@ class CudaEd25519Verifier(IVerifier):
         except Exception:  # noqa: BLE001 — device loss (or an OPEN
             # breaker fast-fail) degrades to the host verifier; the
             # breaker recorded the failure at the kernel seam
+            self.degraded += 1
             from tpubft_torch.crypto.cpu import make_verifier
             v = make_verifier("ed25519", self.public_key_bytes)
             return [v.verify(d, s) for d, s in items]
@@ -114,6 +117,7 @@ class CudaMultisigEd25519Verifier(MultisigEd25519Verifier):
         super().__init__(threshold, total, share_public_keys)
         self._share_pk_bytes = list(share_public_keys)
         self.min_device_batch = min_device_batch
+        self.degraded = 0          # device batches answered by the host
 
     def verify(self, data: bytes, sig: bytes) -> bool:
         if self.threshold < self.min_device_batch:
@@ -125,6 +129,7 @@ class CudaMultisigEd25519Verifier(MultisigEd25519Verifier):
             return all(verify_batch_items(entries))
         except Exception:  # noqa: BLE001 — device loss: the host
             # multisig check is byte-identical, just serial
+            self.degraded += 1
             return super().verify(data, sig)
 
     def verify_share_batch(self, items: Sequence[Tuple[int, bytes, bytes]]
@@ -144,6 +149,7 @@ class CudaMultisigEd25519Verifier(MultisigEd25519Verifier):
         try:
             verdicts = iter(verify_batch_items(entries))
         except Exception:  # noqa: BLE001 — degrade to per-share host
+            self.degraded += 1
             return [self.verify_share(i, d, s) for i, d, s in items]
         return [next(verdicts) if shaped else False for shaped in ok_shape]
 
@@ -168,6 +174,7 @@ class CudaMultisigEd25519Verifier(MultisigEd25519Verifier):
         try:
             verdicts = iter(verify_batch_items(entries))
         except Exception:  # noqa: BLE001 — device loss: serial host check
+            self.degraded += 1
             return [self.verify(d, s) for d, s in items]
         out = []
         for one in parsed:
@@ -228,6 +235,7 @@ class CudaMultisigEd25519Verifier(MultisigEd25519Verifier):
         try:
             flat = verify_batch_items(entries) if entries else []
         except Exception:  # noqa: BLE001 — device loss: per-job host loop
+            self.degraded += 1
             return super().combine_batch(jobs)
         ok_by_job: List[Dict[int, bool]] = [{} for _ in jobs]
         for (j, sid), good in zip(index, flat):
