@@ -3,12 +3,18 @@
 
     python3 chip_smoke.py
 
-builds the CUDA kernels from the sources in the checkout on first use and
-runs these phases in order, one JSON line each; any failure exits non-zero:
+builds the CUDA kernels from the sources in the checkout (one nvcc per
+source, all started together) and runs these phases in order, one JSON
+line each; any failure exits non-zero:
 
-  device   the card's name, power limit and SM clock;
-  ladder   the kernel's own fe_mul / fe_inv on 4096 random field elements
-           against Python-int arithmetic mod p and the plain PyTorch field;
+  device   the card's name, power limit and SM clock, the builds, and the
+           SHA-256 kernel's per-block loop read from its SASS (cuobjdump):
+           its 32-bit integer instructions bound that kernel below;
+  ladder   the bring-up ladder (python -m tpubft_torch.tools.bringup):
+           six rungs at 1024 lanes — bringup_copy, fe_carry, fe_mul,
+           fe_inv, fe_table_gather and the verify kernel — each against
+           Python ints (or the host scalar verdicts) and against its
+           plain PyTorch version, with its time and the plain version's;
   kernel   the CUDA verify kernel against the plain PyTorch verify on the
            card at B=1024 (the strict-verify corpus plus zero padding
            lanes), exactly, and against the host scalar verdicts;
@@ -24,12 +30,29 @@ runs these phases in order, one JSON line each; any failure exits non-zero:
            SigManager's and the multisig verifier's counters, and the
            breaker: no failure, one success per launch) and the device
            breaker is closed;
-  rate     the kernel alone (CUDA events, after warm-up) at B = 256, 1024
-           and 16384, the host prepare_batch time at the same B and the
-           plain version's time at B=1024;
-  kernels  every kernel of the main path with its launches in the plane
-           run, its match against the plain version, its time, its bound
-           and the plain version's time.
+  ledger   config 1's categorized KVBC ledger at the kvbcbench block shape
+           (800 blocks of 8 versioned keys and one Merkle-proven key) on a
+           MemoryDB with use_device_hashing=True, against the same ledger
+           hashed by hashlib, applied twice: as the reference's migrate_v4
+           ingests, add_blocks in chunks of 64 (no Merkle level reaches the
+           192 nodes that send it to the device; the count is printed), and
+           as a synthetic stress of the SHA-256 kernel, one add_blocks of
+           all 800 blocks (every level reaches the device). Each run: every
+           block's Merkle root, block digest and raw block and every DB row
+           byte-equal to hashlib's, nothing degraded, one breaker success
+           per launch; the stress run launched once per device level;
+  digest   the ledger's raw blocks in state-transfer windows of 64 through
+           the window-digest helper (sha256_batch_mixed), plus one window
+           of mixed block sizes, against hashlib: config 1's SHA-256 path;
+  rate     the verify kernel alone (CUDA events, after warm-up) at B = 256,
+           1024 and 16384, the host prepare_batch time at the same B and
+           the plain version's time at B=1024; the SHA-256 kernel alone at
+           B = 192, 1024 and 16384 two-block messages beside the host
+           prepare, hashlib over the same messages and the plain version
+           at B=1024;
+  kernels  every kernel with its launches on its path (the plane, the
+           ladder, the state-transfer digests), its match against the plain
+           version, its time, its bound and the plain version's time.
 
 Then the card's name and power limit as nvidia-smi reports them, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -108,65 +131,110 @@ def verify_bound_ms(batch: int, sm_clock_mhz: float) -> dict:
 # ---------------------------------------------------------------------
 
 def phase_device(torch) -> dict:
+    from tpubft_torch.ops import _build
     smi = nvidia_smi("name,power.limit")
     clk = nvidia_smi("clocks.max.sm").split()[0]
+    from tpubft_torch.ops import sha256_cuda
+    t0 = time.monotonic()
+    build_s = build_all()
+    build_wall_s = time.monotonic() - t0
+    loop = sha256_cuda.sass_loop_body()
     info = {"phase": "device", "name": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "nvidia_smi": smi,
             "clocks_max_sm_mhz": float(clk),
-            "torch": torch.__version__, "cuda": torch.version.cuda}
+            "torch": torch.__version__, "cuda": torch.version.cuda,
+            "build_s": build_s, "build_wall_s": build_wall_s,
+            "ptxas": dict(_build.ptxas_report),
+            "sha256_sass_loop": dict(loop.most_common()),
+            "sha256_int32_per_compression": sha256_cuda.int32_ops(loop)}
     emit(info)
     return info
 
 
-def phase_ladder(torch, dev) -> dict:
-    """Bring-up rungs 2-3: fe_mul and fe_inv kernels vs Python ints."""
-    import numpy as np
+def build_all() -> dict:
+    """Build every kernel library at once, one nvcc per source in its own
+    thread; -> {library: seconds}. A failed build raises."""
+    import threading
 
-    from tpubft_torch.ops import _build
-    from tpubft_torch.ops import ed25519_cuda as kc
-    from tpubft_torch.ops import f25519 as F
-    t0 = time.monotonic()
-    kc.library()
-    build_s = time.monotonic() - t0
-    n = 4096
-    rng = np.random.default_rng(2026)
-    va = [int.from_bytes(rng.bytes(32), "little") % F.P for _ in range(n)]
-    vb = [int.from_bytes(rng.bytes(32), "little") % F.P for _ in range(n)]
-    va[:4] = [0, 1, F.P - 1, F.P - 2]
-    vb[:4] = [F.P - 1, F.P - 1, F.P - 1, 2**255 - 20]
-    la = np.stack([F.int_to_limbs(v) for v in va], 1)
-    lb = np.stack([F.int_to_limbs(v) for v in vb], 1)
-    ta = torch.from_numpy(la).to(dev)
-    tb = torch.from_numpy(lb).to(dev)
-    got_mul = kc.fe_mul(ta, tb).cpu().numpy()
-    got_inv = kc.fe_inv(ta).cpu().numpy()
-    want_mul = np.stack([F.int_to_limbs(a * b) for a, b in zip(va, vb)], 1)
-    want_inv = np.stack([F.int_to_limbs(pow(a, F.P - 2, F.P))
-                         for a in va], 1)
-    plain_mul = F.canonical(F.mul(ta, tb)).cpu().numpy()
-    plain_inv = F.canonical(F.inv(ta)).cpu().numpy()
-    out = {"phase": "ladder", "n": n, "build_s": build_s,
-           "ptxas": _build.ptxas_report.get("ed25519_verify", ""),
-           "kernels": []}
-    for name, got, want, plain, fn, pfn in (
-            ("fe_mul", got_mul, want_mul, plain_mul,
-             lambda: kc.fe_mul(ta, tb),
-             lambda: F.canonical(F.mul(ta, tb))),
-            ("fe_inv", got_inv, want_inv, plain_inv,
-             lambda: kc.fe_inv(ta), lambda: F.canonical(F.inv(ta)))):
-        out["kernels"].append({
-            "name": name, "route": "cuda",
-            "source": "tpubft_torch/ops/csrc/ed25519_verify.cu",
-            "replaces": "tools/pallas_bringup.py:80",
-            "mismatches_vs_int": int((got != want).any(axis=0).sum()),
-            "mismatches_vs_plain": int((got != plain).any(axis=0).sum()),
-            "max_abs_err": int(np.abs(got.astype(np.int64)
-                                      - plain.astype(np.int64)).max()),
-            "ms": cuda_ms(fn, 20), "plain_ms": cuda_ms(pfn, 1)})
+    from tpubft_torch.ops import bringup_cuda, ed25519_cuda, sha256_cuda
+    libs = {"ed25519_verify": ed25519_cuda.library,
+            "sha256": sha256_cuda.library, "bringup": bringup_cuda.library}
+    seconds, errors = {}, []
+
+    def build(name, fn):
+        t0 = time.monotonic()
+        try:
+            fn()
+        except Exception as exc:  # noqa: BLE001 — re-raised below
+            errors.append(exc)
+        seconds[name] = time.monotonic() - t0
+
+    threads = [threading.Thread(target=build, args=item)
+               for item in libs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return seconds
+
+
+def work_bound_ms(ops: int, nbytes: int, sm_clock_mhz: float) -> dict:
+    """The larger of `ops` 32-bit integer operations over 132 SMs x 64
+    INT32 lanes x the SM clock and `nbytes` over the HBM rate."""
+    ops_ms = ops / (H100_SMS * INT32_IMAD_PER_SM_CLK * sm_clock_mhz * 1e6) \
+        * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": by, "ops": ops,
+            "bytes": nbytes}
+
+
+def reset_all_launches() -> None:
+    from tpubft_torch.ops import bringup_cuda, ed25519_cuda, sha256_cuda
+    for mod in (bringup_cuda, ed25519_cuda, sha256_cuda):
+        mod.reset_launches()
+
+
+def all_launches() -> dict:
+    from tpubft_torch.ops import bringup_cuda, ed25519_cuda, sha256_cuda
+    return {**ed25519_cuda.LAUNCHES, **bringup_cuda.LAUNCHES,
+            **sha256_cuda.LAUNCHES}
+
+
+def phase_ladder(torch, dev, sm_clock_mhz: float) -> dict:
+    """The six bring-up rungs through tpubft_torch.tools.bringup."""
+    from tpubft_torch.ops import bringup_cuda
+    from tpubft_torch.tools import bringup
+    reset_all_launches()
+    rungs = bringup.run_ladder(dev)
+    launches = all_launches()
+    rows = []
+    for r in rungs:
+        row = dict(r.report)
+        name = row["kernel"]
+        row["launches"] = launches[name]
+        verify = name == "ed25519_verify"
+        row["ms"] = cuda_ms(r.run, 5 if verify else 20)
+        row["plain_ms"] = cuda_ms(r.plain, 1)
+        # rung 0's plain version is one PyTorch call (an add), so it is
+        # also the library yardstick; no single call computes the others
+        row["library_ms"] = cuda_ms(r.plain, 20) \
+            if name == "bringup_copy" else None
+        if verify:
+            row.update(verify_bound_ms(row["lanes"], sm_clock_mhz))
+        else:
+            row.update(work_bound_ms(*bringup_cuda.work(name, row["lanes"]),
+                                     sm_clock_mhz))
+        rows.append(row)
+    out = {"phase": "ladder", "lanes": bringup.TILE, "rungs": rows}
     emit(out)
-    for k in out["kernels"]:
-        if k["mismatches_vs_int"] or k["mismatches_vs_plain"]:
-            raise AssertionError(f"ladder {k['name']} mismatches: {k}")
+    if len(rungs) != len(bringup.RUNGS) or not all(r.ok for r in rungs):
+        raise AssertionError(f"ladder rung failed: {rows[-1]}")
+    missing = [r["kernel"] for r in rows if r["launches"] < 1]
+    if missing:
+        raise AssertionError(f"ladder ran without launching {missing}")
     return out
 
 
@@ -374,9 +442,177 @@ def phase_plane(torch, dev, num_pp: int = 8, slots: int = 64) -> dict:
     return out
 
 
-def phase_rate(torch, dev, sm_clock_mhz: float, smi: str) -> dict:
+def phase_ledger(torch, dev, blocks: int = 800, chunk: int = 64) -> dict:
+    """Config 1's categorized ledger at the kvbcbench block shape, device
+    hashing against hashlib: ingested in add_blocks chunks of 64 as the
+    reference's migrate_v4 does, and once as one 800-block add_blocks, a
+    synthetic stress in which every Merkle level reaches the device."""
+    from tpubft_torch import convert, testing
+    from tpubft_torch.kvbc import create_blockchain, sparse_merkle
+    from tpubft_torch.ops import sha256_cuda
+    from tpubft_torch.ops.dispatch import device_breaker
+    from tpubft_torch.storage import MemoryDB
+    from tpubft_torch.utils import flight
+
+    updates = [convert.block_updates(rows)
+               for rows in testing.kvbcbench_rows(blocks)]
+    ids = range(1, blocks + 1)
+
+    def ingest(bc, size):
+        t0 = time.perf_counter()
+        for i in range(0, blocks, size):
+            bc.add_blocks(updates[i:i + size])
+        return time.perf_counter() - t0
+
+    db_host = MemoryDB()
+    bc_host = create_blockchain(db_host, use_device_hashing=False)
+    host_s = ingest(bc_host, chunk)
+    host_rows = list(db_host.scan_all())
+
+    # count the Merkle levels that go to the device and the wall time of
+    # their calls (host prepare + copies + kernel), around the module's
+    # own function
+    real_hash_level = sparse_merkle._hash_level
+    breaker = device_breaker()
+    runs = {}
+    for name, size in (("migrate_chunks", chunk), ("stress", blocks)):
+        levels = {"device": 0, "host": 0, "device_s": 0.0}
+
+        def counted(messages, use_device, levels=levels):
+            on_device = use_device and \
+                len(messages) >= sparse_merkle._DEVICE_THRESHOLD
+            levels["device" if on_device else "host"] += 1
+            t0 = time.perf_counter()
+            try:
+                return real_hash_level(messages, use_device)
+            finally:
+                if on_device:
+                    levels["device_s"] += time.perf_counter() - t0
+
+        breaker.reset()
+        br0 = breaker.snapshot()
+        flight.kernel_profiler().reset()
+        sparse_merkle.DEGRADED = 0
+        db = MemoryDB()
+        bc = create_blockchain(db, use_device_hashing=True)
+        sparse_merkle._hash_level = counted
+        reset_all_launches()
+        try:
+            dev_s = ingest(bc, size)
+        finally:
+            sparse_merkle._hash_level = real_hash_level
+        launches = sha256_cuda.LAUNCHES["sha256"]
+        br1 = breaker.snapshot()
+        runs[name] = {
+            "add_blocks_calls": -(-blocks // size),
+            "blocks_per_call": size, "head": bc.last_block_id,
+            "device_ledger_s": dev_s,
+            "levels_on_device": levels["device"],
+            "levels_on_host": levels["host"],
+            "device_level_calls_s": levels["device_s"],
+            "sha256_launches": launches,
+            "device_sections": flight.kernel_profiler().snapshot().get(
+                "sha256", {}),
+            "roots_equal": all(
+                bc.get_block(b).category_digests
+                == bc_host.get_block(b).category_digests for b in ids),
+            "block_digests_equal": all(
+                bc.block_digest(b) == bc_host.block_digest(b) for b in ids),
+            "raw_blocks_equal": all(
+                bc.get_raw_block(b) == bc_host.get_raw_block(b)
+                for b in ids),
+            "db_equal": list(db.scan_all()) == host_rows,
+            "merkle_root": bc.merkle_root("proven").hex(),
+            "degraded": sparse_merkle.DEGRADED,
+            "breaker_successes": br1["successes"] - br0["successes"],
+            "breaker_failures": br1["failures"] - br0["failures"],
+            "breaker_fast_fails": br1["fast_fails"] - br0["fast_fails"]}
+    out = {"phase": "ledger", "blocks": blocks,
+           "hashlib_ledger_s": host_s, "hashlib_chunk": chunk,
+           "db_rows": len(host_rows), **runs}
+    emit(out)
+    problems = []
+    for name, r in runs.items():
+        problems += [f"{name}: {k}" for k in
+                     ("roots_equal", "block_digests_equal",
+                      "raw_blocks_equal", "db_equal") if not r[k]]
+        if r["head"] != blocks:
+            problems.append(f"{name}: head {r['head']} != {blocks}")
+        if r["sha256_launches"] < r["levels_on_device"]:
+            problems.append(f"{name}: {r['sha256_launches']} sha256 "
+                            f"launches for {r['levels_on_device']} "
+                            "device levels")
+        if r["degraded"]:
+            problems.append(f"{name}: {r['degraded']} Merkle levels fell "
+                            "back to hashlib")
+        if r["breaker_failures"] or r["breaker_fast_fails"]:
+            problems.append(f"{name}: device breaker recorded failures")
+        if r["breaker_successes"] != r["sha256_launches"]:
+            problems.append(f"{name}: {r['breaker_successes']} device "
+                            f"sections succeeded for "
+                            f"{r['sha256_launches']} launches")
+    if runs["stress"]["levels_on_device"] < 1:
+        problems.append("the stress run sent no Merkle level to the device")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    out["raws"] = [bc_host.get_raw_block(b) for b in ids]
+    return out
+
+
+def phase_digest(torch, dev, raws, window: int = 64) -> dict:
+    """State-transfer window digests of the ledger's raw blocks, and one
+    window of mixed sizes, against hashlib."""
+    import hashlib
+
+    from tpubft_torch import convert, testing
+    from tpubft_torch.kvbc import create_blockchain
+    from tpubft_torch.ops import sha256 as sha
+    from tpubft_torch.ops import sha256_cuda
+    from tpubft_torch.statetransfer import digests
+    from tpubft_torch.storage import MemoryDB
+
+    windows = [raws[i:i + window] for i in range(0, len(raws), window)]
+    big = create_blockchain(MemoryDB(), use_device_hashing=False)
+    big.add_blocks([convert.block_updates(rows) for rows in
+                    testing.kvbcbench_rows(window, big_every=8)])
+    windows.append([big.get_raw_block(b) for b in range(1, window + 1)])
+    digests.DEGRADED = 0
+    reset_all_launches()
+    rows = []
+    for w in windows:
+        before = sha256_cuda.LAUNCHES["sha256"]
+        t0 = time.perf_counter()
+        got = digests.window_digests(w, use_device=True)
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append({"blocks": len(w),
+                     "expect_launch": len(w) >= digests.DEVICE_DIGEST_THRESHOLD,
+                     "block_counts": sorted({sha.blocks_needed(len(r))
+                                             for r in w}),
+                     "launches": sha256_cuda.LAUNCHES["sha256"] - before,
+                     "ms": ms,
+                     "equal": got == [hashlib.sha256(r).digest()
+                                      for r in w]})
+    out = {"phase": "digest", "window": window, "windows": rows,
+           "launches": sha256_cuda.LAUNCHES["sha256"],
+           "degraded": digests.DEGRADED}
+    emit(out)
+    if not all(r["equal"] for r in rows):
+        raise AssertionError("window digests differ from hashlib")
+    if out["degraded"] or any(r["launches"] != int(r["expect_launch"])
+                              for r in rows):
+        raise AssertionError("a window of at least the device threshold "
+                             "did not take exactly one launch")
+    if len(rows[-1]["block_counts"]) < 2:
+        raise AssertionError("the mixed window has one block count")
+    out["window_raws"] = (windows[0], windows[-1])
+    return out
+
+
+def phase_rate(torch, dev, sm_clock_mhz: float, smi: str,
+               sha_ops: int) -> dict:
     """Kernel time at B = 256, 1024, 16384; host prepare time; the plain
-    version's time at 1024."""
+    version's time at 1024. SHA-256 at Merkle-level shapes; `sha_ops` is
+    its integer instructions per compression."""
     import numpy as np
 
     from tpubft_torch.crypto.cpu import Ed25519Signer
@@ -406,18 +642,71 @@ def phase_rate(torch, dev, sm_clock_mhz: float, smi: str) -> dict:
             row["plain_ms"] = cuda_ms(lambda: ops.plain_verify_kernel(*args),
                                       1)
         rows.append(row)
+    sha_rows = [sha256_rate_row(torch, dev, b, sm_clock_mhz, sha_ops)
+                for b in (192, 1024, 16384)]
     out = {"phase": "rate", "card": smi,
            "clocks_sm_now": nvidia_smi("clocks.sm,power.draw"),
-           "rows": rows}
+           "rows": rows, "sha256_rows": sha_rows}
     emit(out)
     if not all(r["all_valid"] for r in rows):
         raise AssertionError("rate corpus did not verify")
+    if not all(r["equal_hashlib"] for r in sha_rows):
+        raise AssertionError("sha256 rate batch differs from hashlib")
     return out
 
 
-def phase_kernels(torch, dev, plane, kernel, sm_clock_mhz) -> dict:
-    """Every kernel of the main path, timed at the main path's shape (one
-    PrePrepare drain of 100 signatures)."""
+def merkle_messages(b: int, seed: int = 5):
+    """b Merkle inner-node messages (0x01 || left || right, 65 bytes:
+    two SHA-256 blocks), the ledger's shape."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [b"\x01" + rng.bytes(64) for _ in range(b)]
+
+
+def sha256_work(words, nblocks, ops_per_compression: int) -> tuple:
+    """(operations, bytes) of one SHA-256 launch on these inputs: the
+    compressions this data needs at the kernel's own integer instructions
+    per compression (its SASS), the blocks compressed read once, the
+    block counts read once, digests written once."""
+    nb = words.shape[1]
+    compressions = int(nblocks.clamp(min=0, max=nb).sum())
+    nbytes = compressions * 64 + nblocks.numel() * 4 + words.shape[0] * 32
+    return compressions * ops_per_compression, nbytes
+
+
+def sha256_rate_row(torch, dev, b: int, sm_clock_mhz: float,
+                    sha_ops: int) -> dict:
+    """The SHA-256 kernel alone on b two-block messages, the host prepare
+    and hashlib over the same messages; the plain version at B=1024."""
+    import hashlib
+
+    from tpubft_torch.ops import sha256 as sha
+    from tpubft_torch.ops import sha256_cuda
+    msgs = merkle_messages(b)
+    t0 = time.perf_counter()
+    words = sha.prepare(msgs)
+    prep_ms = (time.perf_counter() - t0) * 1e3
+    w, nb = sha.to_tensors(words, [words.shape[1]] * b, dev)
+    t0 = time.perf_counter()
+    want = [hashlib.sha256(m).digest() for m in msgs]
+    hashlib_ms = (time.perf_counter() - t0) * 1e3
+    got = sha.digest_words_to_bytes(
+        sha.digests_from_tensor(sha256_cuda.sha256(w, nb)))
+    ms = cuda_ms(lambda: sha256_cuda.sha256(w, nb), 50 if b <= 1024 else 20)
+    row = {"batch": b, "blocks_per_msg": words.shape[1], "ms": ms,
+           "hashes_per_s": b / ms * 1e3, "prepare_ms": prep_ms,
+           "hashlib_ms": hashlib_ms, "equal_hashlib": got == want,
+           **work_bound_ms(*sha256_work(w, nb, sha_ops), sm_clock_mhz)}
+    if b == 1024:
+        row["plain_ms"] = cuda_ms(lambda: sha.plain_sha256(w, nb), 1)
+    return row
+
+
+def phase_kernels(torch, dev, plane, kernel, ladder, ledger, digest,
+                  sm_clock_mhz, sha_ops) -> dict:
+    """Every kernel, timed at its path's shape: the verify kernel at one
+    PrePrepare drain of 100 signatures, the ladder kernels at the ladder's
+    1024 lanes, SHA-256 at one state-transfer window of 64 raw blocks."""
     import numpy as np
 
     from tpubft_torch import testing
@@ -443,11 +732,94 @@ def phase_kernels(torch, dev, plane, kernel, sm_clock_mhz) -> dict:
     bound = verify_bound_ms(b, sm_clock_mhz)
     row["bound_ms"] = bound["bound_ms"]
     row["bound_by"] = bound["bound_by"]
-    out = {"kernels": [row]}
+    rows = [row]
+    for r in ladder["rungs"]:
+        if r["kernel"] == "ed25519_verify":
+            continue
+        rows.append({"name": r["kernel"], "route": "cuda",
+                     "source": LADDER_SOURCES[r["kernel"]],
+                     "replaces": LADDER_REPLACES[r["kernel"]],
+                     "launches": r["launches"],
+                     "max_abs_err": r["max_abs_err"], "batch": r["lanes"],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"], "path": "ladder"})
+    rows.append(sha256_kernel_row(torch, dev, ledger, digest, sm_clock_mhz,
+                                  sha_ops))
+    out = {"kernels": rows}
     emit(out)
-    if err:
-        raise AssertionError(f"kernel disagrees with plain version: {row}")
+    bad = [r["name"] for r in rows if r["max_abs_err"]]
+    if bad:
+        raise AssertionError(f"kernels disagree with plain versions: {bad}")
     return out
+
+
+LADDER_SOURCES = {
+    "fe_mul": "tpubft_torch/ops/csrc/ed25519_verify.cu",
+    "fe_inv": "tpubft_torch/ops/csrc/ed25519_verify.cu",
+    "bringup_copy": "tpubft_torch/ops/csrc/bringup.cu",
+    "fe_carry": "tpubft_torch/ops/csrc/bringup.cu",
+    "fe_table_gather": "tpubft_torch/ops/csrc/bringup.cu"}
+LADDER_REPLACES = {
+    "bringup_copy": "tools/pallas_bringup.py:95",
+    "fe_carry": "tools/pallas_bringup.py:99",
+    "fe_mul": "tools/pallas_bringup.py:104",
+    "fe_inv": "tools/pallas_bringup.py:109",
+    "fe_table_gather": "tools/pallas_bringup.py:175"}
+
+
+def window_tensors(sha, raws, dev):
+    """The kernel's inputs for one state-transfer window, padded as
+    sha256_batch_mixed pads it (to a power of two; the uniform layout when
+    every block needs the same count, the masked one otherwise)."""
+    import numpy as np
+    m = 1 << (len(raws) - 1).bit_length()
+    msgs = list(raws) + [raws[0]] * (m - len(raws))
+    if len({sha.blocks_needed(len(r)) for r in msgs}) == 1:
+        words = sha.prepare(msgs)
+        nblocks = np.full(m, words.shape[1], dtype=np.uint32)
+    else:
+        words, nblocks = sha.prepare_mixed(msgs)
+    return sha.to_tensors(words, nblocks, dev)
+
+
+def sha256_kernel_row(torch, dev, ledger, digest, sm_clock_mhz,
+                      sha_ops) -> dict:
+    """The SHA-256 kernel at config 1's launch shape, a state-transfer
+    window of 64 raw ledger blocks, against its plain version there and on
+    the mixed window; launches are the digest phase's (the migrate-chunk
+    ledger launched none), the stress ledger's beside them."""
+    import hashlib
+
+    from tpubft_torch.ops import sha256 as sha
+    from tpubft_torch.ops import sha256_cuda
+    first, mixed = digest["window_raws"]
+    err = 0
+    for raws in (mixed, first):
+        w, nb = window_tensors(sha, raws, dev)
+        got = sha256_cuda.sha256(w, nb)
+        plain = sha.plain_sha256(w, nb)
+        err = max(err, int((got.long() - plain.long()).abs().max()))
+    t0 = time.perf_counter()
+    for r in first:
+        hashlib.sha256(r).digest()
+    hashlib_ms = (time.perf_counter() - t0) * 1e3
+    return {"name": "sha256", "route": "cuda",
+            "source": "tpubft_torch/ops/csrc/sha256.cu",
+            "replaces": "tpubft/ops/sha256.py:82 (and :178)",
+            "launches": digest["launches"]
+            + ledger["migrate_chunks"]["sha256_launches"],
+            "stress_launches": ledger["stress"]["sha256_launches"],
+            "max_abs_err": err,
+            "batch": w.shape[0], "blocks_per_msg": w.shape[1],
+            "ms": cuda_ms(lambda: sha256_cuda.sha256(w, nb), 50),
+            "plain_ms": cuda_ms(lambda: sha.plain_sha256(w, nb), 1),
+            **{k: v for k, v in work_bound_ms(
+                *sha256_work(w, nb, sha_ops), sm_clock_mhz).items()
+               if k in ("bound_ms", "bound_by")},
+            "library_ms": None,
+            "hashlib_host_ms": hashlib_ms,
+            "path": "state-transfer digests"}
 
 
 def main() -> int:
@@ -461,11 +833,15 @@ def main() -> int:
     torch.cuda.set_device(dev)
     info = phase_device(torch)
     clock = info["clocks_max_sm_mhz"]
-    phase_ladder(torch, dev)
+    ladder = phase_ladder(torch, dev, clock)
     kernel = phase_kernel(torch, dev)
     plane = phase_plane(torch, dev)
-    phase_rate(torch, dev, clock, info["nvidia_smi"])
-    phase_kernels(torch, dev, plane, kernel, clock)
+    sha_ops = info["sha256_int32_per_compression"]
+    ledger = phase_ledger(torch, dev)
+    digest = phase_digest(torch, dev, ledger.pop("raws"))
+    phase_rate(torch, dev, clock, info["nvidia_smi"], sha_ops)
+    phase_kernels(torch, dev, plane, kernel, ladder, ledger, digest, clock,
+                  sha_ops)
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

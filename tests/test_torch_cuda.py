@@ -1,17 +1,25 @@
 """The CUDA kernels of the port on a card: the verify kernel against the
-plain PyTorch version and the host scalar engine, and the field test
-kernels against Python ints. Marked `cuda`; each test skips where no card
-is present (run on the card: python -m pytest tests/test_torch_cuda.py).
+plain PyTorch version and the host scalar engine, the field test kernels
+against Python ints, the SHA-256 kernel against hashlib and its plain
+version, and the bring-up kernels against theirs. Marked `cuda`; each test
+skips where no card is present (run on the card:
+python -m pytest --noconftest tests/test_torch_cuda.py).
 """
+import hashlib
+
 import numpy as np
 import pytest
 import torch
 
 from tpubft_torch import testing
 from tpubft_torch.crypto import scalar
+from tpubft_torch.ops import bringup_cuda as bu
 from tpubft_torch.ops import ed25519 as ops
 from tpubft_torch.ops import ed25519_cuda as kc
 from tpubft_torch.ops import f25519 as F
+from tpubft_torch.ops import sha256 as sha
+from tpubft_torch.ops import sha256_cuda
+from tpubft_torch.tools import bringup
 
 # one intra-op thread: these tests run many tiny tensor ops, and several
 # test workers share the host's cores
@@ -53,3 +61,64 @@ def test_field_kernels_match_python_ints(card):
         assert np.array_equal(mul[:, i], F.int_to_limbs(va[i] * vb[i]))
         assert np.array_equal(inv[:, i],
                               F.int_to_limbs(pow(va[i], F.P - 2, F.P)))
+
+
+def _sha_messages(batch, mixed):
+    rng = np.random.default_rng(batch)
+    if not mixed:
+        return [b"\x01" + rng.bytes(64) for _ in range(batch)]
+    sizes = [0, 55, 56, 63, 64, 119, 300, 4096]
+    return [rng.bytes(sizes[i % len(sizes)]) for i in range(batch)]
+
+
+@pytest.mark.parametrize("mixed", [False, True], ids=["uniform", "mixed"])
+@pytest.mark.parametrize("batch", [1, 192, 1024])
+def test_sha256_kernel_matches_hashlib_and_plain(card, batch, mixed):
+    msgs = _sha_messages(batch, mixed)
+    if mixed:
+        words, nblocks = sha.prepare_mixed(msgs)
+    else:
+        words = sha.prepare(msgs)
+        nblocks = np.full(batch, words.shape[1])
+    w, nb = sha.to_tensors(words, nblocks, card)
+    before = sha256_cuda.LAUNCHES["sha256"]
+    got = sha.sha256_kernel(w, nb)
+    assert sha256_cuda.LAUNCHES["sha256"] == before + 1
+    assert torch.equal(got, sha.plain_sha256(w, nb))
+    assert sha.digest_words_to_bytes(sha.digests_from_tensor(got)) == \
+        [hashlib.sha256(m).digest() for m in msgs]
+    assert sha.sha256_batch_mixed(msgs, device=card) == \
+        [hashlib.sha256(m).digest() for m in msgs]
+
+
+@pytest.mark.parametrize("rung", [0, 1, 4])
+def test_bringup_kernels_match_plain_and_ints(card, rung):
+    before = dict(bu.LAUNCHES)
+    r = bringup.RUNGS[rung](np.random.default_rng(rung), card, 1000)
+    assert r.ok, r.report
+    assert sum(bu.LAUNCHES.values()) == sum(before.values()) + 1
+
+
+def test_table_gather_with_a_random_constant(card):
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(bringup._rand_elems(rng, 300)).to(card)
+    col = torch.from_numpy(bringup._rand_elems(rng, 1)[:, 0].copy()).to(card)
+    assert torch.equal(bu.fe_table_gather(a, col),
+                       bu.plain_table_gather(a, col))
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "contiguity"])
+def test_wrappers_refuse_bad_cuda_tensors(card, case):
+    good = torch.zeros((F.NL, 64), dtype=torch.int32, device=card)
+    bad = {"dtype": good.to(torch.int64), "shape": good[:12].contiguous(),
+           "contiguity": good.t().contiguous().t()}[case]
+    words = torch.zeros((4, 2, 16), dtype=torch.int32, device=card)
+    nblocks = torch.full((4,), 2, dtype=torch.int32, device=card)
+    bad_words = {"dtype": words.to(torch.int64),
+                 "shape": words[:, :, :8].contiguous(),
+                 "contiguity": words.transpose(0, 1)}[case]
+    for call in (lambda: bu.bringup_copy(bad), lambda: bu.fe_carry(bad),
+                 lambda: bu.fe_table_gather(bad, good[:, 0].contiguous()),
+                 lambda: sha256_cuda.sha256(bad_words, nblocks)):
+        with pytest.raises(ValueError):
+            call()

@@ -9,18 +9,25 @@ arrays, bytes, ints), so this module needs nothing of the reference:
     into the port's kernel inputs on a device;
   * `cluster_keys_from_public` builds the port's ClusterKeys from the
     reference's public material (replica and client public keys, the
-    threshold systems' public keys).
+    threshold systems' public keys);
+  * `block_updates` builds a block's updates for either package from
+    plain (category, key, value, type) rows;
+  * `memorydb_from_rows` carries a ledger across: the port's MemoryDB
+    holding the (family, key, value) rows of a reference DB's
+    `scan_all()`, byte for byte.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, Iterable, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from tpubft_torch import device as _device
 from tpubft_torch.consensus.keys import ClusterKeys
 from tpubft_torch.crypto.interfaces import Cryptosystem
+from tpubft_torch.kvbc.categories import BlockUpdates
 from tpubft_torch.ops import ed25519 as ops
+from tpubft_torch.storage import MemoryDB, WriteBatch
 
 
 def prepared_from_numpy(s_win, h_win, a_y, a_sign, r_y, r_sign,
@@ -69,3 +76,25 @@ def cluster_keys_from_public(
         setattr(ck, attr, public_cryptosystem(
             threshold_scheme, threshold, n, list(share_pks), share_pks))
     return ck
+
+
+def block_updates(rows: Iterable[Tuple[str, bytes, bytes, str]],
+                  cls=BlockUpdates):
+    """One block's updates from (category, key, value, category type)
+    rows; `cls` is the BlockUpdates class of either package (their
+    category type names are the same strings)."""
+    bu = cls()
+    for category, key, value, cat_type in rows:
+        bu.put(category, key, value, cat_type)
+    return bu
+
+
+def memorydb_from_rows(rows: Iterable[Tuple[bytes, bytes, bytes]]
+                       ) -> MemoryDB:
+    """A port MemoryDB holding every (family, key, value) row."""
+    db = MemoryDB()
+    wb = WriteBatch()
+    for family, key, value in rows:
+        wb.put(key, value, family)
+    db.write(wb)
+    return db

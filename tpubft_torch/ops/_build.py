@@ -4,8 +4,8 @@ Each library is compiled at first use by `nvcc` from the sources in the
 package (csrc/), with a plain C interface, and loaded with ctypes. The
 output goes to `ops/_build/` (listed in .gitignore) under a name keyed
 by a hash of the sources and flags, so an edited source rebuilds and
-an unchanged one loads the existing library. A failed build raises; there
-is no fallback.
+an unchanged one loads the existing library. A failed build raises
+BuildError; there is no fallback.
 """
 from __future__ import annotations
 
@@ -30,6 +30,12 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 ptxas_report: Dict[str, str] = {}
 
 
+class BuildError(Exception):
+    """A kernel library could not be built. Not a RuntimeError, so the
+    callers that answer a lost device from the host (sparse_merkle,
+    statetransfer/digests) let it through."""
+
+
 def nvcc_path() -> str:
     """nvcc on PATH, else the toolkit's default location."""
     found = shutil.which("nvcc")
@@ -39,8 +45,8 @@ def nvcc_path() -> str:
                         "bin", "nvcc")
     if os.path.exists(cand):
         return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
-                       "source at first use and need the CUDA toolkit")
+    raise BuildError("nvcc not found: the CUDA kernels are built from "
+                     "source at first use and need the CUDA toolkit")
 
 
 def _digest(sources: Sequence[str], headers: Sequence[str]) -> str:
@@ -53,24 +59,27 @@ def _digest(sources: Sequence[str], headers: Sequence[str]) -> str:
 
 def load(name: str, sources: Sequence[str],
          headers: Sequence[str] = ()) -> ctypes.CDLL:
-    """Build (if needed) and load lib<name>-<hash>.so from csrc/."""
+    """Build (if needed) and load lib<name>-<hash>.so from csrc/.
+
+    nvcc runs outside the lock, so different libraries build in parallel
+    threads; two threads building the same one each write their own
+    temporary file and the atomic rename keeps either."""
     with _lock:
         lib = _loaded.get(name)
-        if lib is not None:
-            return lib
-        so = os.path.join(BUILD_DIR,
-                          f"lib{name}-{_digest(sources, headers)}.so")
-        if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-                   *(os.path.join(CSRC, s) for s in sources)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed building {name} ({proc.returncode}):\n"
-                    f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-            ptxas_report[name] = proc.stderr.strip()
-            os.replace(tmp, so)
-        lib = _loaded[name] = ctypes.CDLL(so)
+    if lib is not None:
         return lib
+    so = os.path.join(BUILD_DIR, f"lib{name}-{_digest(sources, headers)}.so")
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+               *(os.path.join(CSRC, s) for s in sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise BuildError(
+                f"nvcc failed building {name} ({proc.returncode}):\n"
+                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+        ptxas_report[name] = proc.stderr.strip()
+        os.replace(tmp, so)
+    with _lock:
+        return _loaded.setdefault(name, ctypes.CDLL(so))

@@ -1,0 +1,153 @@
+"""Abstract key-value DB interface (a copy of tpubft/storage/interfaces.py).
+
+The port keeps its own copy of this jax-free module: IDBClient (get /
+write / range iteration / atomic write batches) with RocksDB-style
+column families ("families"), encoded as a length-prefixed key prefix so
+every backend gets them for free and range scans stay contiguous per
+family.
+"""
+from __future__ import annotations
+
+import abc
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+DEFAULT_FAMILY = b"default"
+
+
+class StorageError(Exception):
+    pass
+
+
+def fkey(family: bytes, key: bytes) -> bytes:
+    """Compose the physical key. Family names are <=255 bytes, so the
+    1-byte length prefix keeps families disjoint and contiguous."""
+    if len(family) > 255:
+        raise StorageError("family name too long")
+    return bytes([len(family)]) + family + key
+
+
+def split_fkey(physical: bytes) -> Tuple[bytes, bytes]:
+    n = physical[0]
+    return physical[1:1 + n], physical[1 + n:]
+
+
+def family_upper_bound(family: bytes) -> Optional[bytes]:
+    """Smallest physical key strictly greater than every key in `family`
+    (None = unbounded, i.e. family is the last possible)."""
+    prefix = bytes([len(family)]) + family
+    b = bytearray(prefix)
+    for i in reversed(range(len(b))):
+        if b[i] != 0xFF:
+            b[i] += 1
+            return bytes(b[:i + 1])
+    return None
+
+
+class WriteBatch:
+    """Ordered, atomic batch of put/delete ops across families
+    (reference: ITransaction / rocksdb::WriteBatch)."""
+
+    def __init__(self) -> None:
+        # (physical_key, value-or-None)
+        self.ops: List[Tuple[bytes, Optional[bytes]]] = []
+
+    def put(self, key: bytes, value: bytes,
+            family: bytes = DEFAULT_FAMILY) -> "WriteBatch":
+        self.ops.append((fkey(family, key), bytes(value)))
+        return self
+
+    def delete(self, key: bytes,
+               family: bytes = DEFAULT_FAMILY) -> "WriteBatch":
+        self.ops.append((fkey(family, key), None))
+        return self
+
+    def __len__(self) -> int:
+        return len(self.ops)
+
+    # Canonical wire encoding shared with the native engine (kvlog.cpp):
+    # repeat{ u8 op(1=put,2=del) | u32le klen | key | [u32le vlen | val] }
+    def encode(self) -> bytes:
+        out = bytearray()
+        for k, v in self.ops:
+            if v is None:
+                out += b"\x02" + len(k).to_bytes(4, "little") + k
+            else:
+                out += (b"\x01" + len(k).to_bytes(4, "little") + k
+                        + len(v).to_bytes(4, "little") + v)
+        return bytes(out)
+
+
+class IDBClient(abc.ABC):
+    """Abstract ordered KV store (db_interface.h:55)."""
+
+    @abc.abstractmethod
+    def get(self, key: bytes,
+            family: bytes = DEFAULT_FAMILY) -> Optional[bytes]: ...
+
+    @abc.abstractmethod
+    def write(self, batch: WriteBatch) -> None: ...
+
+    @abc.abstractmethod
+    def range_iter(self, family: bytes = DEFAULT_FAMILY,
+                   start: Optional[bytes] = None,
+                   end: Optional[bytes] = None
+                   ) -> Iterator[Tuple[bytes, bytes]]:
+        """Iterate (key, value) for start <= key < end within a family."""
+
+    @abc.abstractmethod
+    def close(self) -> None: ...
+
+    def sync(self) -> None:
+        """Force everything written so far onto stable storage (the
+        group-commit fsync seam — one call durably lands every batch
+        applied since the previous sync). Backends without a durability
+        boundary (memory stores) are a no-op; NativeDB overrides with a
+        real fsync. Callers outside tpubft/durability/ are lint-banned
+        (tools/tpulint fsync-seam pass): amortizing this call is the
+        durability pipeline's whole job, and a stray per-write sync
+        silently reintroduces the per-run disk tax."""
+
+    def write_group(self, batches: Sequence[WriteBatch]) -> None:
+        """Apply several batches as one group, in order (the durability
+        pipeline's group-concatenation seam). The default preserves
+        per-batch atomicity only; NativeDB overrides by concatenating
+        the group into ONE engine record — one apply, one CRC, and (in
+        sync_writes mode) one fsync for the whole group."""
+        for b in batches:
+            if b.ops:
+                self.write(b)
+
+    def scan_all(self) -> "Iterator[Tuple[bytes, bytes, bytes]]":
+        """Iterate EVERY (family, key, value) in the store — the
+        whole-state snapshot walk (reference: RocksDB checkpoint /
+        state-snapshot streaming). Backends with a physical-order scan
+        override this."""
+        raise NotImplementedError
+
+    # ---- conveniences built on the primitives ----
+    def put(self, key: bytes, value: bytes,
+            family: bytes = DEFAULT_FAMILY) -> None:
+        self.write(WriteBatch().put(key, value, family))
+
+    def delete(self, key: bytes, family: bytes = DEFAULT_FAMILY) -> None:
+        self.write(WriteBatch().delete(key, family))
+
+    def has(self, key: bytes, family: bytes = DEFAULT_FAMILY) -> bool:
+        return self.get(key, family) is not None
+
+    def multi_get(self, keys: Sequence[bytes],
+                  family: bytes = DEFAULT_FAMILY) -> List[Optional[bytes]]:
+        return [self.get(k, family) for k in keys]
+
+    def last_in_range(self, family: bytes = DEFAULT_FAMILY,
+                      start: Optional[bytes] = None,
+                      end: Optional[bytes] = None
+                      ) -> Optional[Tuple[bytes, bytes]]:
+        out = None
+        for kv in self.range_iter(family, start, end):
+            out = kv
+        return out
+
+    def family_dict(self, family: bytes = DEFAULT_FAMILY
+                    ) -> Dict[bytes, bytes]:
+        return dict(self.range_iter(family))

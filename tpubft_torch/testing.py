@@ -6,6 +6,10 @@ plus the strict-verify corner cases that live half on the host and half
 in the kernel — s >= L, non-canonical A and R (y >= p), A with x = 0 and
 the sign bit set, A whose y has no square root, wrong-length signature
 and key, and R bytes that are not a point encoding.
+
+`kvbcbench_rows` is the ledger's block shape: the reference's kvbcbench
+(benchmarks/bench_kvbc.py), 8 versioned keys and one Merkle-proven key
+per block.
 """
 from __future__ import annotations
 
@@ -80,3 +84,26 @@ def ed25519_corpus(n: int, seed: int = 0
             sig = r + sig[32:]
         items.append((msg, sig, pk))
     return items
+
+
+def kvbcbench_rows(blocks: int, keys_per_block: int = 8, big_every: int = 0
+                   ) -> List[List[Tuple[str, bytes, bytes, str]]]:
+    """Blocks b = 0 .. blocks-1 of the reference's kvbcbench:
+    `keys_per_block` VERSIONED_KV writes to category "bench" (keys
+    k-<n> cycling over 2*blocks names) and one BLOCK_MERKLE write of
+    m-<b % 64> to category "proven", as (category, key, value, category
+    type) rows. With `big_every` > 0, every big_every-th block's first
+    versioned value is 4 KiB instead (blocks of mixed sizes)."""
+    out = []
+    for b in range(blocks):
+        rows = []
+        for i in range(keys_per_block):
+            k = b"k-%d" % ((b * keys_per_block + i) % (blocks * 2))
+            v = b"v-%d-%d" % (b, i)
+            if big_every and i == 0 and b % big_every == 0:
+                v = v.ljust(4096, b".")
+            rows.append(("bench", k, v, "versioned_kv"))
+        rows.append(("proven", b"m-%d" % (b % 64), b"mv-%d" % b,
+                     "block_merkle"))
+        out.append(rows)
+    return out
