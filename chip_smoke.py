@@ -14,10 +14,16 @@ line each; any failure exits non-zero:
            six rungs at 1024 lanes — bringup_copy, fe_carry, fe_mul,
            fe_inv, fe_table_gather and the verify kernel — each against
            Python ints (or the host scalar verdicts) and against its
-           plain PyTorch version, with its time and the plain version's;
+           plain PyTorch version; each timed by the host's enqueue time
+           per call and by device time (a CUDA graph of the calls replayed
+           under CUDA events), beside the plain version's time;
+           bringup_copy and torch.add also by the profiler's kernel time,
+           and at 2^20 lanes, where the bytes bound them;
   kernel   the CUDA verify kernel against the plain PyTorch verify on the
-           card at B=1024 (the strict-verify corpus plus zero padding
-           lanes), exactly, and against the host scalar verdicts;
+           card, raw, and against the host scalar verdicts, on the
+           strict-verify corpus at B = 1, 3, 33, 100, 192 and 1024 (edges
+           inside a warp and a four-lane group), and on raw inputs the
+           host never sends (y >= p);
   plane    BASELINE config 1 end to end through the normal entry points:
            n=4 f=1 c=0, Ed25519 replicas and clients, the adaptive
            certificate scheme (multisig-ed25519). 8 PrePrepare batches of
@@ -44,15 +50,18 @@ line each; any failure exits non-zero:
   digest   the ledger's raw blocks in state-transfer windows of 64 through
            the window-digest helper (sha256_batch_mixed), plus one window
            of mixed block sizes, against hashlib: config 1's SHA-256 path;
-  rate     the verify kernel alone (CUDA events, after warm-up) at B = 256,
-           1024 and 16384, the host prepare_batch time at the same B and
-           the plain version's time at B=1024; the SHA-256 kernel alone at
+  rate     the verify kernel alone (CUDA events, after warm-up) at B = 100,
+           192, 256, 1024 and 16384, the host prepare_batch time at the
+           same B and the plain version's time at B=1024, with the
+           kernel's critical path in dependent field steps; the SHA-256
+           kernel alone at
            B = 192, 1024 and 16384 two-block messages beside the host
            prepare, hashlib over the same messages and the plain version
            at B=1024;
   kernels  every kernel with its launches on its path (the plane, the
            ladder, the state-transfer digests), its match against the plain
-           version, its time, its bound and the plain version's time.
+           version, its device time (`ms`, a CUDA graph) and host enqueue
+           time (`host_ms`), its bound and the plain version's time.
 
 Then the card's name and power limit as nvidia-smi reports them, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -93,7 +102,9 @@ def nvidia_smi(fields: str) -> str:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
-    """Mean device time of fn() over `iters` launches, by CUDA events."""
+    """Mean time of fn() over `iters` back-to-back calls, by CUDA events.
+    For a kernel shorter than its call this is the host's enqueue time per
+    call, not the kernel's (see graph_ms)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -108,22 +119,68 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, launches: int, replays: int = 5) -> float:
+    """Device time per call of fn(): `launches` calls captured into one
+    CUDA graph, the graph replayed under CUDA events, so the host's enqueue
+    time is out of the measurement (each call's kernels and the gap
+    between graph nodes remain)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * launches)
+
+
+def profiler_kernel_ms(fn, iters: int = 20):
+    """Mean device time per call of the kernels fn() launches, from a
+    torch.profiler trace; None where the trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.self_device_time_total for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA)
+    return us / 1e3 / iters if us > 0 else None
+
+
 def verify_bound_ms(batch: int, sm_clock_mhz: float) -> dict:
     """Least time the card could take for `batch` verifies: the larger of
-    the integer multiply-adds over the INT32 rate and the bytes (each
-    input read once, the verdict written once) over the HBM rate."""
+    the integer multiply-adds the function needs (an IMAD.WIDE counted as
+    two) over the INT32 rate and the bytes (each input read once, the
+    verdict written once) over the HBM rate. `executed_ops` counts what the
+    four-lane kernel runs instead, for its work efficiency."""
     from tpubft_torch.ops import ed25519_cuda as kc
-    imad = kc.imad_per_verify()
-    ops = batch * (2 * imad["imad_wide"] + imad["imad"])
-    ops_ms = ops / (H100_SMS * INT32_IMAD_PER_SM_CLK * sm_clock_mhz * 1e6) \
-        * 1e3
+
+    def imad_ops(counts):
+        imad = kc.imad_per_verify(counts)
+        return batch * (2 * imad["imad_wide"] + imad["imad"])
+
     nbytes = batch * ((2 * 64 + 2 * 24 + 2) * 4 + 1)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    if ops_ms >= bytes_ms:
-        return {"bound_ms": ops_ms, "bound_by": "operations", "ops": ops,
-                "bytes": nbytes}
-    return {"bound_ms": bytes_ms, "bound_by": "bytes", "ops": ops,
-            "bytes": nbytes}
+    out = work_bound_ms(imad_ops(kc.function_ops_per_verify()), nbytes,
+                        sm_clock_mhz)
+    out["executed_ops"] = imad_ops(kc.field_ops_per_verify())
+    return out
 
 
 # ---------------------------------------------------------------------
@@ -216,54 +273,113 @@ def phase_ladder(torch, dev, sm_clock_mhz: float) -> dict:
         name = row["kernel"]
         row["launches"] = launches[name]
         verify = name == "ed25519_verify"
-        row["ms"] = cuda_ms(r.run, 5 if verify else 20)
+        # the host's enqueue time per call, then device time (a CUDA graph
+        # of the calls)
+        row["host_ms"] = cuda_ms(r.run, 5 if verify else 20)
+        row["ms"] = graph_ms(r.run, 5 if verify else 100)
         row["plain_ms"] = cuda_ms(r.plain, 1)
         # rung 0's plain version is one PyTorch call (an add), so it is
         # also the library yardstick; no single call computes the others
-        row["library_ms"] = cuda_ms(r.plain, 20) \
-            if name == "bringup_copy" else None
+        row["library_ms"] = None
+        if name == "bringup_copy":
+            row["library_host_ms"] = cuda_ms(r.plain, 20)
+            row["library_ms"] = graph_ms(r.plain, 100)
+            copy_rung = (row, r)
         if verify:
             row.update(verify_bound_ms(row["lanes"], sm_clock_mhz))
         else:
             row.update(work_bound_ms(*bringup_cuda.work(name, row["lanes"]),
                                      sm_clock_mhz))
         rows.append(row)
-    out = {"phase": "ladder", "lanes": bringup.TILE, "rungs": rows}
+    # the profiler's kernel time of the copy and torch.add, once, after
+    # every other timing: it splits the graph time into kernel and node
+    row, r = copy_rung
+    row["kernel_ms"] = profiler_kernel_ms(r.run)
+    row["library_kernel_ms"] = profiler_kernel_ms(r.plain)
+    out = {"phase": "ladder", "lanes": bringup.TILE, "rungs": rows,
+           "copy_large": copy_large_row(torch, dev, sm_clock_mhz)}
     emit(out)
     if len(rungs) != len(bringup.RUNGS) or not all(r.ok for r in rungs):
         raise AssertionError(f"ladder rung failed: {rows[-1]}")
+    if not out["copy_large"]["equal_plain"]:
+        raise AssertionError("bringup_copy at 2^20 lanes differs from its "
+                             "plain version")
     missing = [r["kernel"] for r in rows if r["launches"] < 1]
     if missing:
         raise AssertionError(f"ladder ran without launching {missing}")
     return out
 
 
+def copy_large_row(torch, dev, sm_clock_mhz: float) -> dict:
+    """bringup_copy and torch.add at 2^20 lanes (96 MB in, 96 MB out),
+    where the bytes bound the copy."""
+    from tpubft_torch.ops import bringup_cuda as bu
+    lanes = 1 << 20
+    gen = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randint(0, 1 << 26, (bu.NL, lanes), dtype=torch.int32,
+                      device=dev, generator=gen)
+    got = bu.bringup_copy(a)
+    row = {"lanes": lanes, "equal_plain": bool(torch.equal(
+        got, bu.plain_copy(a)))}
+    del got
+    row["host_ms"] = cuda_ms(lambda: bu.bringup_copy(a), 10)
+    row["ms"] = graph_ms(lambda: bu.bringup_copy(a), 10)
+    row["library_ms"] = graph_ms(lambda: bu.plain_copy(a), 10)
+    row.update(work_bound_ms(*bu.work("bringup_copy", lanes), sm_clock_mhz))
+    row["gb_per_s"] = row["bytes"] / row["ms"] / 1e6
+    torch.cuda.empty_cache()
+    return row
+
+
+# the verify kernel's batch sizes: one lane, a ragged warp and group edge
+# (3, 33), config 1's PrePrepare (100), its verify_batch_size-sized flushes
+# (192 drains), and the ladder's tile
+KERNEL_BATCHES = (1, 3, 33, 100, 192, 1024)
+
+
 def phase_kernel(torch, dev) -> dict:
-    """The CUDA verify vs the plain PyTorch verify on the card, B=1024."""
+    """The CUDA verify vs the plain PyTorch verify on the card, raw, and
+    (masked by host_valid) vs the host scalar engine, on the strict-verify
+    corpus at every KERNEL_BATCHES size, plus the raw inputs the host never
+    sends (testing.raw_kernel_lanes)."""
     import numpy as np
 
     from tpubft_torch import testing
     from tpubft_torch.crypto import scalar
     from tpubft_torch.ops import ed25519 as ops
     from tpubft_torch.ops import ed25519_cuda as kc
-    b, n = 1024, 1024 - 64                     # 64 zero padding lanes
-    items = testing.ed25519_corpus(n, seed=7)
-    prep = ops.prepare_batch(items)
-    args = ops.to_tensors(ops._pad_rows(prep, n, b), dev)
+    rows = []
+    for b in KERNEL_BATCHES:
+        items = testing.ed25519_corpus(b, seed=7 + b)
+        prep = ops.prepare_batch(items)
+        args = ops.to_tensors(ops._pad_rows(prep, b, b), dev)
+        got = kc.verify(*args).cpu().numpy()
+        plain = ops.plain_verify_kernel(*args).cpu().numpy()
+        host = np.array([scalar.ed25519_verify(pk, m, s)
+                         for m, s, pk in items])
+        rows.append({"batch": b,
+                     "kinds": len({testing.KINDS[i % len(testing.KINDS)]
+                                   for i in range(b)}),
+                     "raw_mismatches": int((got != plain).sum()),
+                     "host_mismatches": int(((got & prep.host_valid)
+                                             != host).sum()),
+                     "valid": int(host.sum()),
+                     "kernel_accepts_host_rejected": int(
+                         (got & ~prep.host_valid).sum())})
+    arrays, want = testing.raw_kernel_lanes()
+    args = ops.to_tensors(arrays, dev)
     got = kc.verify(*args).cpu().numpy()
     plain = ops.plain_verify_kernel(*args).cpu().numpy()
-    host = np.array([scalar.ed25519_verify(pk, m, s) for m, s, pk in items])
-    final = got[:n] & prep.host_valid
-    out = {"phase": "kernel", "batch": b, "items": n,
-           "raw_mismatches": int((got != plain).sum()),
-           "max_abs_err": int(np.abs(got.astype(np.int64)
-                                     - plain.astype(np.int64)).max()),
-           "host_mismatches": int((final != host).sum()),
-           "valid": int(host.sum()),
-           "kernel_accepts_host_rejected": int((got[:n]
-                                                & ~prep.host_valid).sum())}
+    raw = {"lanes": len(want), "verdicts": got.tolist(),
+           "plain": plain.tolist(), "expected": want}
+    out = {"phase": "kernel", "batches": rows, "raw_lanes": raw,
+           "raw_mismatches": sum(r["raw_mismatches"] for r in rows)
+           + int((got != plain).sum()),
+           "host_mismatches": sum(r["host_mismatches"] for r in rows)}
+    out["max_abs_err"] = int(out["raw_mismatches"] > 0)
     emit(out)
-    if out["raw_mismatches"] or out["host_mismatches"]:
+    if out["raw_mismatches"] or out["host_mismatches"] \
+            or got.tolist() != want:
         raise AssertionError(f"kernel phase mismatches: {out}")
     return out
 
@@ -608,9 +724,12 @@ def phase_digest(torch, dev, raws, window: int = 64) -> dict:
     return out
 
 
+RATE_BATCHES = (100, 192, 256, 1024, 16384)
+
+
 def phase_rate(torch, dev, sm_clock_mhz: float, smi: str,
                sha_ops: int) -> dict:
-    """Kernel time at B = 256, 1024, 16384; host prepare time; the plain
+    """Verify-kernel time at RATE_BATCHES; host prepare time; the plain
     version's time at 1024. SHA-256 at Merkle-level shapes; `sha_ops` is
     its integer instructions per compression."""
     import numpy as np
@@ -627,7 +746,7 @@ def phase_rate(torch, dev, sm_clock_mhz: float, smi: str,
         uniq += [(m, s, signer.public_bytes())
                  for m, s in zip(msgs, signer.sign_batch(msgs))]
     rows = []
-    for b in (256, 1024, 16384):
+    for b in RATE_BATCHES:
         items = (uniq * (b // len(uniq) + 1))[:b]
         t0 = time.perf_counter()
         prep = ops.prepare_batch(items)
@@ -646,6 +765,9 @@ def phase_rate(torch, dev, sm_clock_mhz: float, smi: str,
                 for b in (192, 1024, 16384)]
     out = {"phase": "rate", "card": smi,
            "clocks_sm_now": nvidia_smi("clocks.sm,power.draw"),
+           "verify_critical_path_steps": kc.critical_path_steps(),
+           "verify_field_ops": kc.function_ops_per_verify(),
+           "verify_executed_field_ops": kc.field_ops_per_verify(),
            "rows": rows, "sha256_rows": sha_rows}
     emit(out)
     if not all(r["all_valid"] for r in rows):
@@ -726,12 +848,14 @@ def phase_kernels(torch, dev, plane, kernel, ladder, ledger, digest,
            "replaces": "tpubft/ops/ed25519_pallas.py:421",
            "launches": plane["launches"]["ed25519_verify"],
            "max_abs_err": err, "batch": b,
-           "ms": cuda_ms(lambda: kc.verify(*args), 20),
+           "host_ms": cuda_ms(lambda: kc.verify(*args), 20),
+           "ms": graph_ms(lambda: kc.verify(*args), 20),
            "plain_ms": cuda_ms(lambda: ops.plain_verify_kernel(*args), 1),
-           "library_ms": None}
+           "library_ms": None,
+           "critical_path_steps": kc.critical_path_steps()["total"]}
     bound = verify_bound_ms(b, sm_clock_mhz)
-    row["bound_ms"] = bound["bound_ms"]
-    row["bound_by"] = bound["bound_by"]
+    for k in ("bound_ms", "bound_by", "executed_ops", "ops"):
+        row[k] = bound[k]
     rows = [row]
     for r in ladder["rungs"]:
         if r["kernel"] == "ed25519_verify":
@@ -741,7 +865,8 @@ def phase_kernels(torch, dev, plane, kernel, ladder, ledger, digest,
                      "replaces": LADDER_REPLACES[r["kernel"]],
                      "launches": r["launches"],
                      "max_abs_err": r["max_abs_err"], "batch": r["lanes"],
-                     "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "ms": r["ms"], "host_ms": r["host_ms"],
+                     "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "path": "ladder"})
     rows.append(sha256_kernel_row(torch, dev, ledger, digest, sm_clock_mhz,
@@ -812,7 +937,8 @@ def sha256_kernel_row(torch, dev, ledger, digest, sm_clock_mhz,
             "stress_launches": ledger["stress"]["sha256_launches"],
             "max_abs_err": err,
             "batch": w.shape[0], "blocks_per_msg": w.shape[1],
-            "ms": cuda_ms(lambda: sha256_cuda.sha256(w, nb), 50),
+            "host_ms": cuda_ms(lambda: sha256_cuda.sha256(w, nb), 50),
+            "ms": graph_ms(lambda: sha256_cuda.sha256(w, nb), 50),
             "plain_ms": cuda_ms(lambda: sha.plain_sha256(w, nb), 1),
             **{k: v for k, v in work_bound_ms(
                 *sha256_work(w, nb, sha_ops), sm_clock_mhz).items()

@@ -35,7 +35,7 @@ def card():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("batch", [1, 100, 1024])
+@pytest.mark.parametrize("batch", [1, 3, 33, 100, 192, 1024])
 def test_verify_kernel_matches_plain_and_scalar(card, batch):
     items = testing.ed25519_corpus(batch, seed=batch)
     prep = ops.prepare_batch(items)
@@ -47,6 +47,25 @@ def test_verify_kernel_matches_plain_and_scalar(card, batch):
     want = [scalar.ed25519_verify(pk, m, s) for m, s, pk in items]
     assert (got & prep.host_valid).tolist() == want
     assert ops.verify_batch(items, device=card).tolist() == want
+
+
+def test_verify_kernel_on_raw_lanes(card):
+    """y >= p for A or R, which the host never sends: the kernel's raw
+    verdicts equal the plain version's."""
+    arrays, want = testing.raw_kernel_lanes()
+    args = ops.to_tensors(arrays, card)
+    assert kc.verify(*args).cpu().tolist() == want
+    assert ops.plain_verify_kernel(*args).cpu().tolist() == want
+
+
+def test_copy_kernel_at_2p20_lanes(card):
+    a = torch.randint(0, 1 << 26, (F.NL, 1 << 20), dtype=torch.int32,
+                      device=card)
+    assert torch.equal(bu.bringup_copy(a), bu.plain_copy(a))
+    # a view one word in: not 16-byte aligned, the scalar path
+    flat = torch.arange(F.NL * 1000 + 1, dtype=torch.int32, device=card)
+    off = flat[1:].view(F.NL, 1000)
+    assert torch.equal(bu.bringup_copy(off), bu.plain_copy(off))
 
 
 def test_field_kernels_match_python_ints(card):

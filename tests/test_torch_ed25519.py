@@ -61,7 +61,8 @@ def test_prepare_batch_identical(corpus):
     rejected = ("s_ge_l", "a_noncanonical", "r_noncanonical", "short_sig",
                 "short_pk")
     reach_kernel = ("valid", "wrong_key", "wrong_msg", "a_x0_sign",
-                    "a_nonsquare", "valid_long_msg")
+                    "a_nonsquare", "valid_long_msg", "r_x0_sign",
+                    "r_nonsquare", "a_small_order")
     for kind, ok in zip(kinds, got.host_valid):
         if kind in rejected:
             assert not ok, kind
@@ -149,6 +150,16 @@ def test_double_scalar_mul_affine_matches():
     assert np.array_equal(got[1], np.asarray(want[1]))
 
 
+def test_plain_kernel_matches_xla_on_raw_lanes():
+    """Inputs the host never sends (y >= p for A or R): the plain version
+    and the reference XLA kernel give the verdicts the CUDA kernel is held
+    to (testing.raw_kernel_lanes)."""
+    arrays, want = testing.raw_kernel_lanes()
+    got = ops.verify_kernel(*ops.to_tensors(arrays, "cpu"))
+    assert got.tolist() == want == [True, False, True, False]
+    assert np.asarray(R.verify_kernel(*arrays)).tolist() == want
+
+
 def test_cuda_tensors_on_cpu_host_raise(corpus, monkeypatch):
     """No card here: asking for the card raises, and nothing reaches the
     plain version on the way."""
@@ -184,11 +195,23 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(corpus):
 
 
 def test_kernel_cost_model():
-    """The per-verify operation count chip_smoke turns into the bound."""
+    """The per-verify operation counts: what the four lanes execute (each
+    decompressing a point, no inversion, building the table and running
+    the 64 windows of 4 doublings and 2 additions) and what the function
+    needs, which chip_smoke turns into the bound."""
+    lane = ed25519_cuda.lane_ops()
+    assert lane["decompress"] == {"sqr": 255, "mul": 19}
+    assert lane["ladder"] == {"sqr": 64 * 4, "mul": 64 * 8}
     counts = ed25519_cuda.field_ops_per_verify()
-    assert counts == {"sqr": 1533, "mul": 2207}
-    imad = ed25519_cuda.imad_per_verify()
-    assert imad["imad_wide"] == 100 * 2207 + 55 * 1533
+    assert counts == {"sqr": 2048, "mul": 2300}
+    need = ed25519_cuda.function_ops_per_verify()
+    assert need == {"sqr": 2 * 255 + 64 * 16,
+                    "mul": 2 * 18 + 2 + 14 * 9 + 64 * 31 + 2}
+    assert need["sqr"] < counts["sqr"] and need["mul"] < counts["mul"]
+    imad = ed25519_cuda.imad_per_verify(need)
+    assert imad["imad_wide"] == 100 * 2150 + 55 * 1534
+    steps = ed25519_cuda.critical_path_steps()
+    assert steps["ladder"] == 64 * 12 and steps["total"] == 1070
     consts, btab = ed25519_cuda.kernel_constants()
     assert consts.shape == (3, 10) and btab.shape == (16, 3, 10)
     # the uploaded limbs are canonical values of the reference's constants

@@ -30,6 +30,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from tpubft_torch.consensus.keys import ClusterKeys
 from tpubft_torch.crypto.interfaces import IVerifier
+from tpubft_torch.device import NoDevice
 from tpubft_torch.ops.dispatch import BreakerOpen, device_breaker
 from tpubft_torch.utils.logging import get_logger
 from tpubft_torch.utils.metrics import Aggregator, Component
@@ -400,9 +401,14 @@ class SigManager:
                 # scalar engines carry the load until the half-open
                 # probe re-admits the device
                 self.degraded_verifies.inc(len(sub))
-            except Exception:  # noqa: BLE001 — a device failure must
-                # degrade verification, never fail it: the breaker
-                # recorded the failure (trip after N consecutive)
+            except NoDevice:
+                raise               # no card: a set-up fault, not a loss
+            except RuntimeError:
+                # a device failure (a failed launch; NotImplementedError
+                # for a scheme whose slice is not ported) must degrade
+                # verification, never fail it: the breaker recorded the
+                # failure (trip after N consecutive). A BuildError, a
+                # wrapper's ValueError and any other error raise.
                 log.warning("device verify batch failed (%d items); "
                             "rerouting to scalar engines",
                             len(sub), exc_info=True)

@@ -14,11 +14,14 @@ batched Ed25519 kernel (ops/ed25519.py → ops/ed25519_cuda.py):
                                   identification and the fused cross-slot
                                   combine as ONE device batch.
 
-A device failure (or an OPEN breaker) degrades to the host scalar engine
-at the same places as the reference; the breaker recorded the failure at
-the kernel seam, and the verifier counts the batch in its `degraded`
-counter, so a run can tell a fallback from a device answer. The BLS classes and the ECDSA device routing wait for
-their slices.
+A device failure (a RuntimeError from the launch, or an OPEN breaker's
+BreakerOpen) degrades to the host scalar engine at the same places as
+the reference; the breaker recorded the failure at the kernel seam, and
+the verifier counts the batch in its `degraded` counter, so a run can
+tell a fallback from a device answer. A missing card
+(`device.NoDevice`), a kernel that does not build (`BuildError`), a
+wrapper refusing its inputs (`ValueError`) and every other error raise.
+The BLS classes and the ECDSA device routing wait for their slices.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from tpubft_torch.crypto.interfaces import IVerifier
 from tpubft_torch.crypto.systems import (MultisigEd25519Verifier,
                                          pack_multisig_vector)
+from tpubft_torch.device import NoDevice
 
 _ECDSA_SCHEMES = ("ecdsa-secp256k1", "secp256k1", "ecdsa-secp256r1",
                   "secp256r1", "ecdsa-p256")
@@ -91,9 +95,11 @@ class CudaEd25519Verifier(IVerifier):
             from tpubft_torch.ops import ed25519 as ops
             return [bool(x) for x in ops.verify_batch(
                 [(d, s, self.public_key_bytes) for d, s in items])]
-        except Exception:  # noqa: BLE001 — device loss (or an OPEN
-            # breaker fast-fail) degrades to the host verifier; the
-            # breaker recorded the failure at the kernel seam
+        except NoDevice:
+            raise
+        except RuntimeError:  # device loss (or an OPEN breaker
+            # fast-fail) degrades to the host verifier; the breaker
+            # recorded the failure at the kernel seam
             self.degraded += 1
             from tpubft_torch.crypto.cpu import make_verifier
             v = make_verifier("ed25519", self.public_key_bytes)
@@ -127,8 +133,10 @@ class CudaMultisigEd25519Verifier(MultisigEd25519Verifier):
             return False
         try:
             return all(verify_batch_items(entries))
-        except Exception:  # noqa: BLE001 — device loss: the host
-            # multisig check is byte-identical, just serial
+        except NoDevice:
+            raise
+        except RuntimeError:  # device loss: the host multisig check is
+            # byte-identical, just serial
             self.degraded += 1
             return super().verify(data, sig)
 
@@ -148,7 +156,9 @@ class CudaMultisigEd25519Verifier(MultisigEd25519Verifier):
                 ok_shape.append(False)
         try:
             verdicts = iter(verify_batch_items(entries))
-        except Exception:  # noqa: BLE001 — degrade to per-share host
+        except NoDevice:
+            raise
+        except RuntimeError:  # device loss: per-share host check
             self.degraded += 1
             return [self.verify_share(i, d, s) for i, d, s in items]
         return [next(verdicts) if shaped else False for shaped in ok_shape]
@@ -173,7 +183,9 @@ class CudaMultisigEd25519Verifier(MultisigEd25519Verifier):
             return [self.verify(d, s) for d, s in items]
         try:
             verdicts = iter(verify_batch_items(entries))
-        except Exception:  # noqa: BLE001 — device loss: serial host check
+        except NoDevice:
+            raise
+        except RuntimeError:  # device loss: serial host check
             self.degraded += 1
             return [self.verify(d, s) for d, s in items]
         out = []
@@ -234,7 +246,9 @@ class CudaMultisigEd25519Verifier(MultisigEd25519Verifier):
             return super().combine_batch(jobs)   # host loop (see verify)
         try:
             flat = verify_batch_items(entries) if entries else []
-        except Exception:  # noqa: BLE001 — device loss: per-job host loop
+        except NoDevice:
+            raise
+        except RuntimeError:  # device loss: per-job host loop
             self.degraded += 1
             return super().combine_batch(jobs)
         ok_by_job: List[Dict[int, bool]] = [{} for _ in jobs]

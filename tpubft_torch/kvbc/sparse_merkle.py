@@ -23,12 +23,12 @@ would have been archived). `prune_versions(before)` is the stale-node
 GC: it drops archive rows superseded before the retention point.
 
 Degradation, as in the reference: a device call that raises a
-RuntimeError (no card, a failed launch, an OPEN device breaker) falls
-back to hashlib with the same digests, because a Merkle update must never
-die with the accelerator. Each such fallback is counted in the
-module-level `DEGRADED` and logged, so a run can tell a device answer
-from a host one. Anything else (a wrapper refusing its inputs, a kernel
-that does not build) raises.
+RuntimeError (a failed launch, an OPEN device breaker) falls back to
+hashlib with the same digests, because a Merkle update must never die
+with the accelerator. Each such fallback is counted in the module-level
+`DEGRADED` and logged, so a run can tell a device answer from a host
+one. Anything else (no card at all, `device.NoDevice`; a wrapper
+refusing its inputs; a kernel that does not build) raises.
 """
 from __future__ import annotations
 
@@ -36,6 +36,7 @@ import hashlib
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from tpubft_torch.device import NoDevice
 from tpubft_torch.ops import sha256 as _sha
 from tpubft_torch.storage.interfaces import IDBClient, WriteBatch
 from tpubft_torch.utils.logging import get_logger
@@ -66,12 +67,15 @@ def _hash_level(messages: Sequence[bytes], use_device: bool) -> List[bytes]:
     if use_device and len(messages) >= _DEVICE_THRESHOLD:
         try:
             return _sha.sha256_batch(messages)
+        except NoDevice:
+            raise
         except RuntimeError as exc:
-            # device loss (a failed launch, no card, an OPEN breaker's
-            # BreakerOpen fast-fail) degrades to hashlib: the digests are
+            # device loss (a failed launch, an OPEN breaker's BreakerOpen
+            # fast-fail) degrades to hashlib: the digests are
             # byte-identical and a Merkle update must never die with the
-            # accelerator. A wrapper's ValueError or a BuildError is a
-            # fault of the program and raises.
+            # accelerator. A missing card, a wrapper's ValueError or a
+            # BuildError is a fault of the set-up or the program and
+            # raises.
             DEGRADED += 1
             _log.warning("Merkle level of %d nodes hashed on the host: %s",
                          len(messages), exc)

@@ -8,7 +8,15 @@
 //
 //   bringup_copy     rung 0 (_body_copy, :95): out = a + c0, where c0 is the
 //                    first entry of the radix table (BITS[0]), as the TPU
-//                    rung added consts[0, 0]. One element per thread.
+//                    rung added consts[0, 0]. A stream over the 24n words
+//                    as one flat array (24n is a multiple of four): each
+//                    thread moves 16 bytes, one int4 load and store; if a
+//                    pointer is not 16-byte aligned, the same grid walks
+//                    the words one by one (a grid-stride loop). At 2^20
+//                    lanes one int4 a thread ran as fast as torch.add on
+//                    the card, one word a thread took 1.75x as long, and
+//                    a grid capped at 16 blocks an SM with four int4 loads
+//                    in flight a thread was slower too (PERF.md).
 //   fe_carry         rung 1 (_body_carry, :99; _Engine.normalize,
 //                    tpubft/ops/ed25519_pallas.py:184): two parallel carry
 //                    passes in the 10/11-bit radix, the carry out of limb 23
@@ -31,7 +39,10 @@
 // (96 bytes read and 96 written per lane, a few integer operations per limb);
 // rung 4 does four field multiplies per lane (about 840 32-bit multiply-add
 // equivalents) on 192 bytes, so at the ladder's 1024 lanes all three are
-// launch-bound. ops/bringup_cuda.work counts both sides for the bound.
+// launch-bound: 192 KB is 0.06 us of HBM time against a few microseconds
+// to start a kernel. The copy's vector stream is for large n (2^20 lanes,
+// 96 MB each way), where the bytes bound it. ops/bringup_cuda.work counts
+// both sides for the bound.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,8 +57,18 @@ extern "C" __global__ void __launch_bounds__(BU_THREADS)
 bringup_copy_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out,
                     int total, int c0) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  out[i] = a[i] + c0;
+  if (((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(out)) &
+       15) != 0) {
+    for (int k = i; k < total; k += gridDim.x * blockDim.x)
+      out[k] = a[k] + c0;
+    return;
+  }
+  const int vecs = total / 4;
+  if (i < vecs) {
+    int4 v = __ldg(reinterpret_cast<const int4*>(a) + i);
+    v.x += c0; v.y += c0; v.z += c0; v.w += c0;
+    reinterpret_cast<int4*>(out)[i] = v;
+  }
 }
 
 extern "C" __global__ void __launch_bounds__(BU_THREADS)
@@ -109,7 +130,7 @@ static unsigned grid_for(int n) {
 extern "C" int bringup_copy_launch(const int32_t* a, int32_t* out, int n,
                                    int c0, void* stream) {
   if (n <= 0) return 0;
-  bringup_copy_kernel<<<grid_for(NL * n), BU_THREADS, 0,
+  bringup_copy_kernel<<<grid_for(NL * n / 4), BU_THREADS, 0,
                         (cudaStream_t)stream>>>(a, out, NL * n, c0);
   return (int)cudaGetLastError();
 }

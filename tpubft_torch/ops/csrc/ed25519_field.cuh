@@ -1,4 +1,5 @@
-// GF(2^255-19) and Ed25519 point arithmetic for one lane per thread.
+// GF(2^255-19) and Ed25519 point arithmetic for the verify kernel, with a
+// signature spread over a group of four lanes.
 //
 // Field representation: ten signed 32-bit limbs of alternating 26 and 25
 // bits (limb i at bit ceil(25.5*i)), 64-bit products (the ref10 radix).
@@ -10,32 +11,46 @@
 // Operand budget (ref10's): fe_mul/fe_sq take limbs bounded by 1.65*2^26
 // (even) / 1.65*2^25 (odd); every output of fe_mul, fe_sq and fe_reduce is
 // bounded by about 2^25 / 2^24. So a sum or difference of at most three
-// such outputs may feed a multiply; the one four-term value in the doubling
-// formula goes through fe_reduce first. With these bounds the 19*g
-// precomputes fit in int32 and every column sum stays below 2^62.
+// such outputs may feed a multiply. With these bounds the 19*g precomputes
+// fit in int32 and every column sum stays below 2^62; fe_sq's doubled form
+// (2f^2, as ref10's fe_sq2) is only taken of a single reduced output, whose
+// column sums stay below 2^60.
 //
-// Everything here is __device__ code for the verify kernel in
-// ed25519_verify.cu; ED_FN also lets a host C++ compiler build the same
-// functions for a quick check of the arithmetic away from the card.
+// Points (the g_* functions): lane c = 0..3 of a group of four consecutive
+// threads owns coordinate c of an extended point (X, Y, Z, T), and each
+// formula of the reference (tpubft/ops/ed25519.py: dbl-2008-hwcd,
+// add-2008-hwcd-3, the niels mixed add; a = -1) runs as two steps of one
+// multiply or square per lane, the four-processor schedule of Hisil, Wong,
+// Carter and Dawson, "Twisted Edwards Curves Revisited" (ASIACRYPT 2008).
+// Limbs move between the steps by shuffles within the group (ED_SHFL).
+//
+// Everything here is __device__ code for ed25519_verify.cu and bringup.cu;
+// ED_FN also lets a host C++ compiler build the same functions for a check
+// of the arithmetic away from the card (a host build provides ed_shfl and
+// ed_shfl_xor, running the four lanes of a group in lock-step).
 #pragma once
 #include <stdint.h>
 
 #ifdef __CUDACC__
 #define ED_FN __device__ __forceinline__
+#define ED_NOINLINE __device__ __noinline__
 #define ED_CONST __constant__
+#define ED_SHFL(v, src) __shfl_sync(0xffffffffu, (v), (src), 4)
+#define ED_SHFL_XOR(v, m) __shfl_xor_sync(0xffffffffu, (v), (m), 4)
 #else
 #define ED_FN static inline
+#define ED_NOINLINE static
 #define ED_CONST static
+#define ED_SHFL(v, src) ed_shfl((v), (src))
+#define ED_SHFL_XOR(v, m) ed_shfl_xor((v), (m))
 #endif
 
 struct Fe { int32_t v[10]; };
-struct Ext { Fe x, y, z, t; };
 
 // constants uploaded from the host (ed25519_cuda.py computes them from
-// Python ints): D, 2D, sqrt(-1), then the niels table [d]B for d = 0..15 as
-// (y+x, y-x, 2d*x*y), all canonical limbs
+// Python ints): D, 2D, sqrt(-1), canonical limbs; every lane reads the same
+// word, so they stay in constant memory
 ED_CONST int32_t c_consts[3][10];
-ED_CONST int32_t c_btab[16][3][10];
 #define ED_D 0
 #define ED_K2D 1
 #define ED_SQRTM1 2
@@ -136,8 +151,10 @@ ED_FN Fe fe_mul(const Fe& f, const Fe& g) {
   return fe_carry(h);
 }
 
-// Square: the 45 cross products once, doubled, plus the 10 squares.
-ED_FN Fe fe_sq(const Fe& f) {
+// Square: the 45 cross products once, doubled, plus the 10 squares; with
+// `twice` 1 the column sums are doubled before the carry, giving 2f^2 as one
+// reduced output (ref10's fe_sq2).
+ED_FN Fe fe_sq(const Fe& f, int twice = 0) {
   int32_t f19[10], f2[10];
 #pragma unroll
   for (int i = 0; i < 10; i++) {
@@ -158,6 +175,9 @@ ED_FN Fe fe_sq(const Fe& f) {
       h[(i + j) % 10] += p;
     }
   }
+  const int64_t keep = -(int64_t)twice;        // all ones or zero
+#pragma unroll
+  for (int i = 0; i < 10; i++) h[i] += h[i] & keep;
   return fe_carry(h);
 }
 
@@ -272,73 +292,33 @@ ED_FN void fe_to_w24(const Fe& c, int32_t* limbs, int stride) {
   }
 }
 
-// ---- points: the reference's formulas (tpubft/ops/ed25519.py) ----
-
-ED_FN Ext ext_identity() {
-  Ext p;
-  p.x = fe_zero(); p.y = fe_one(); p.z = fe_one(); p.t = fe_zero();
-  return p;
-}
-
-// unified extended addition (add-2008-hwcd-3, a=-1, k=2d): 9 multiplies
-ED_FN Ext ext_add(const Ext& p, const Ext& q) {
-  const Fe a = fe_mul(fe_sub(p.y, p.x), fe_sub(q.y, q.x));
-  const Fe b = fe_mul(fe_add(p.y, p.x), fe_add(q.y, q.x));
-  const Fe c = fe_mul(fe_mul(p.t, fe_const(ED_K2D)), q.t);
-  const Fe d = fe_mul(p.z, fe_add(q.z, q.z));
-  const Fe e = fe_sub(b, a), f = fe_sub(d, c), g = fe_add(d, c),
-           h = fe_add(b, a);
-  Ext r;
-  r.x = fe_mul(e, f); r.y = fe_mul(g, h); r.z = fe_mul(f, g);
-  r.t = fe_mul(e, h);
-  return r;
-}
-
-// dedicated doubling (dbl-2008-hwcd, a=-1): 4 multiplies + 4 squares
-ED_FN Ext ext_dbl(const Ext& p) {
-  const Fe a = fe_sq(p.x), b = fe_sq(p.y);
-  Fe c = fe_sq(p.z);
-  c = fe_add(c, c);
-  const Fe e = fe_sub(fe_sub(fe_sq(fe_add(p.x, p.y)), a), b);
-  const Fe g = fe_sub(b, a);
-  const Fe h = fe_neg(fe_add(a, b));
-  const Fe f = fe_reduce(fe_sub(g, c));      // four terms: reduce first
-  Ext r;
-  r.x = fe_mul(e, f); r.y = fe_mul(g, h); r.z = fe_mul(f, g);
-  r.t = fe_mul(e, h);
-  return r;
-}
-
-// mixed addition with the niels point [d]B from constant memory: 7 multiplies
-ED_FN Ext ext_madd_base(const Ext& p, int d) {
-  Fe ypx, ymx, t2d;
+ED_FN Fe fe_sel(bool take_a, const Fe& a, const Fe& b) {
+  Fe r;
 #pragma unroll
-  for (int i = 0; i < 10; i++) {
-    ypx.v[i] = c_btab[d][0][i];
-    ymx.v[i] = c_btab[d][1][i];
-    t2d.v[i] = c_btab[d][2][i];
-  }
-  const Fe a = fe_mul(fe_sub(p.y, p.x), ymx);
-  const Fe b = fe_mul(fe_add(p.y, p.x), ypx);
-  const Fe c = fe_mul(p.t, t2d);
-  const Fe dd = fe_add(p.z, p.z);
-  const Fe e = fe_sub(b, a), f = fe_sub(dd, c), g = fe_add(dd, c),
-           h = fe_add(b, a);
-  Ext r;
-  r.x = fe_mul(e, f); r.y = fe_mul(g, h); r.z = fe_mul(f, g);
-  r.t = fe_mul(e, h);
+  for (int i = 0; i < 10; i++) r.v[i] = take_a ? a.v[i] : b.v[i];
   return r;
 }
 
-// RFC 8032 strict verify of one lane: decompress A, Q = [s]B + [h](-A) by a
-// 64-window msb-first ladder, compare encode(Q) with R. `stride` is the
-// batch size: window w of this lane is s_win[w*stride], limb k is
-// a_y[k*stride].
-ED_FN bool verify_lane(const int32_t* s_win, const int32_t* h_win,
-                       const int32_t* a_y, int32_t a_sign,
-                       const int32_t* r_y, int32_t r_sign, int stride) {
-  // decompress A: x = sqrt((y^2-1)/(d y^2+1)) by the (p-5)/8 exponent
-  const Fe y = fe_reduce(fe_from_w24(a_y, stride));
+// entry c of (a0, a1, a2, a3): lane c's pick, by selects (no branch)
+ED_FN Fe fe_pick4(int c, const Fe& a0, const Fe& a1, const Fe& a2,
+                  const Fe& a3) {
+  return fe_sel(c < 2, fe_sel(c == 0, a0, a1), fe_sel(c == 2, a2, a3));
+}
+
+ED_FN Fe fe_small(int32_t k) {
+  Fe r = fe_zero();
+  r.v[0] = k;
+  return r;
+}
+
+// RFC 8032 decompression of (y, sign) by the (p-5)/8 exponent: x with the
+// parity of `sign`; *valid is false where (y^2-1)/(d y^2+1) has no square
+// root and where x = 0 with the sign bit set. The conditional sqrt(-1)
+// factor is a select, so lanes that take it do not split from the others.
+// A call, not inlined: inlined into the verify kernel, its live values
+// pushed ptxas to 255 registers and a spill inside the ladder; as a call it
+// costs one stack frame per thread, once.
+ED_NOINLINE Fe fe_decompress(const Fe& y, bool sign, bool* valid) {
   const Fe one = fe_one();
   const Fe y2 = fe_sq(y);
   const Fe u = fe_sub(y2, one);
@@ -350,39 +330,184 @@ ED_FN bool verify_lane(const int32_t* s_win, const int32_t* h_win,
   const Fe vx2 = fe_mul(v, fe_sq(x));
   const bool c1 = fe_iszero(fe_sub(vx2, u));
   const bool c2 = fe_iszero(fe_add(vx2, u));
-  bool valid = c1 || c2;
-  if (c2) x = fe_mul(x, fe_const(ED_SQRTM1));
+  x = fe_sel(c2, fe_mul(x, fe_const(ED_SQRTM1)), x);
   const Fe xc = fe_canon(x);
   int32_t x_or = 0;
 #pragma unroll
   for (int i = 0; i < 10; i++) x_or |= xc.v[i];
-  const bool sign = a_sign != 0;
-  if (((xc.v[0] & 1) != 0) != sign) x = fe_neg(x);
-  valid = valid && !(x_or == 0 && sign);
+  x = fe_sel(((xc.v[0] & 1) != 0) != sign, fe_neg(x), x);
+  *valid = (c1 || c2) && !(x_or == 0 && sign);
+  return x;
+}
 
-  // table [j](-A), j = 0..15
-  Ext na;
-  na.x = fe_neg(x); na.y = y; na.z = one; na.t = fe_neg(fe_mul(x, y));
-  Ext tab[16];
-  tab[0] = ext_identity();
-  tab[1] = na;
-  for (int j = 2; j < 16; j++) tab[j] = ext_add(tab[j - 1], na);
+// ---- a point on a group of four lanes ----
 
-  Ext acc = ext_identity();
+ED_FN Fe fe_shfl(const Fe& a, int src) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 10; i++) r.v[i] = ED_SHFL(a.v[i], src);
+  return r;
+}
+
+// The exchanges below go limb by limb: each limb is shuffled and consumed
+// at once, so a step keeps its inputs and two operands live, not the
+// other lanes' coordinates as well.
+
+// First operand of an addition's first step, from this lane's coordinate
+// v: lane 0 Y-X, lane 1 Y+X, lane 2 T, lane 3 Z.
+ED_FN Fe g_add_operand(const Fe& v, int c) {
+  const int src = c < 2 ? 1 : (c ^ 1);
+  const int32_t sx = c == 0 ? -1 : (c == 1 ? 1 : 0);
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 10; i++)
+    r.v[i] = ED_SHFL(v.v[i], src) + sx * ED_SHFL(v.v[i], 0);
+  return r;
+}
+
+// Second step of every formula here: the lanes hold the first step's
+// products a, b, c, d in lane order; with E = b-a, F = d-c, G = d+c,
+// H = b+a, lane 0 returns X3 = E F, lane 1 Y3 = G H, lane 2 Z3 = F G and
+// lane 3 T3 = E H. One exchange within each pair (lanes 0,1 then hold a
+// and b, lanes 2,3 c and d), one across the pairs.
+ED_FN Fe g_finish(const Fe& prod, int c) {
+  Fe op1, op2;
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    const int32_t o = ED_SHFL_XOR(prod.v[i], 1);
+    // lanes 0,1: E, H; lanes 2,3: F, G
+    const int32_t diff = (c & 1) ? prod.v[i] - o : o - prod.v[i];
+    const int32_t sum = prod.v[i] + o;
+    const int32_t xd = ED_SHFL_XOR(diff, 2), xs = ED_SHFL_XOR(sum, 2);
+    op1.v[i] = c == 1 ? xs : (c == 3 ? xd : diff);      // E, G, F, E
+    op2.v[i] = c == 0 ? xd : (c == 3 ? xs : sum);       // F, H, G, H
+  }
+  return fe_mul(op1, op2);
+}
+
+// Addition of a point in cached form: lane c passes coordinate c of
+// (Y2-X2, Y2+X2, 2d T2, 2 Z2) — or of the base niels point
+// (y-x, y+x, 2d x y, 2), the mixed addition — as q. add-2008-hwcd-3:
+// a = (Y1-X1)(Y2-X2), b = (Y1+X1)(Y2+X2), c = T1 2d T2, d = Z1 2 Z2.
+ED_FN Fe g_add(const Fe& v, int c, const Fe& q) {
+  return g_finish(fe_mul(g_add_operand(v, c), q), c);
+}
+
+// dbl-2008-hwcd with a = -1: lanes square X, Y, Z (doubled: C = 2 Z^2) and
+// X+Y into A, B, C, S; then E = S-A-B, G = B-A, H = -A-B, F = G-C, each a
+// sum of at most three reduced outputs, and lane c multiplies its pair of
+// (E F, G H, F G, E H). T is not read.
+ED_FN Fe g_dbl(const Fe& v, int c) {
+  Fe op;
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    const int32_t x = ED_SHFL(v.v[i], 0), y = ED_SHFL(v.v[i], 1);
+    op.v[i] = c == 3 ? x + y : v.v[i];
+  }
+  const Fe s = fe_sq(op, c == 2);
+  Fe op1, op2;
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    const int32_t a = ED_SHFL(s.v[i], 0), b = ED_SHFL(s.v[i], 1),
+                  cc = ED_SHFL(s.v[i], 2), ss = ED_SHFL(s.v[i], 3);
+    const int32_t e = ss - a - b, g = b - a, h = -a - b, f = g - cc;
+    op1.v[i] = c == 1 ? g : (c == 2 ? f : e);           // E, G, F, E
+    op2.v[i] = c == 0 ? f : (c == 2 ? g : h);           // F, H, G, H
+  }
+  return fe_mul(op1, op2);
+}
+
+// Limb l of entry e of a table of per-lane rows: tab[(e * 10 + l) * stride].
+ED_FN Fe fe_load_row(const int32_t* tab, int e, int stride) {
+  Fe r;
+#pragma unroll
+  for (int l = 0; l < 10; l++) r.v[l] = tab[(e * 10 + l) * stride];
+  return r;
+}
+
+ED_FN void fe_store_row(int32_t* tab, int e, int stride, const Fe& a) {
+#pragma unroll
+  for (int l = 0; l < 10; l++) tab[(e * 10 + l) * stride] = a.v[l];
+}
+
+// RFC 8032 strict verify of one signature by lane c of its group.
+//
+// Lanes 0 and 2 decompress A, lanes 1 and 3 R (the same code on their own
+// input). Lane c then builds coordinate c of the cached table
+// [j](-A), j = 0..15, in its own column of `tab` (tab[(j*10+l)*tab_stride];
+// no other lane reads it; row 16 keeps R's coordinate for the compare, out
+// of the registers), and runs the 64-window msb-first ladder
+// Q = [s]B + [h](-A): four doublings, a mixed addition of [s_w]B read from
+// `btab` (btab[l*64 + d*4 + c]: coordinate c of the niels point [d]B) and
+// an addition of [h_w](-A). The verdict compares projectively,
+// X == x_R Z and Y == y_R Z, so no inversion is needed; R must decompress
+// (which rejects a y with no square root and x = 0 with the sign bit, as
+// encode(Q) == R does) and its y must be below p (the plain version's
+// canonical compare). Every lane returns the group's verdict.
+//
+// Inputs as the kernel takes them: window w of the signature is
+// s_win[w*stride], limb k of A's y is a_y[k*stride]; tight 24-limb values
+// below 2^255 and nibbles in 0..15, as ops/ed25519.prepare_batch makes
+// them.
+ED_FN bool verify_group(int c, const int32_t* s_win, const int32_t* h_win,
+                        const int32_t* a_y, int32_t a_sign,
+                        const int32_t* r_y, int32_t r_sign, int stride,
+                        int32_t* tab, int tab_stride, const int32_t* btab) {
+  const bool is_r = (c & 1) != 0;
+  const Fe y_in = fe_from_w24(is_r ? r_y : a_y, stride);
+  int32_t noncanon = 0;                        // R's y must be below p
+  {
+    const Fe yc = fe_canon(y_in);
+#pragma unroll
+    for (int i = 0; i < 10; i++) noncanon |= yc.v[i] ^ y_in.v[i];
+  }
+  const Fe y = fe_reduce(y_in);
+  bool valid;
+  const Fe x = fe_decompress(y, (is_r ? r_sign : a_sign) != 0, &valid);
+  valid = valid && !(is_r && noncanon != 0);
+  const Fe xa = fe_shfl(x, 0), ya = fe_shfl(y, 0);
+  // lane 0 keeps x_R, lane 1 y_R for the compare, in the table's row 16
+  fe_store_row(tab, 16, tab_stride, fe_sel(c == 0, fe_shfl(x, 1), y));
+
+  // -A = (-x, y, 1, -x y); cached: (y + x, y - x, -2d x y, 2)
+  const Fe one = fe_one(), two = fe_small(2), zero = fe_zero();
+  const Fe xy = fe_mul(xa, ya);
+  const Fe t2d = fe_mul(xy, fe_const(ED_K2D));
+  const Fe cached_a = fe_pick4(c, fe_add(ya, xa), fe_sub(ya, xa),
+                               fe_neg(t2d), two);
+  fe_store_row(tab, 0, tab_stride, fe_pick4(c, one, one, zero, two));
+  fe_store_row(tab, 1, tab_stride, cached_a);
+  // extended -> cached is one multiply of the addition's first operand:
+  // (Y-X) 1, (Y+X) 1, T 2d, Z 2
+  const Fe to_cached = fe_pick4(c, one, one, fe_const(ED_K2D), two);
+  Fe cur = g_dbl(fe_pick4(c, fe_neg(xa), ya, one, zero), c);   // [2](-A)
+  for (int j = 2; j < 15; j++) {
+    const Fe op = g_add_operand(cur, c);
+    fe_store_row(tab, j, tab_stride, fe_mul(op, to_cached));
+    cur = g_finish(fe_mul(op, cached_a), c);
+  }
+  fe_store_row(tab, 15, tab_stride,
+               fe_mul(g_add_operand(cur, c), to_cached));
+
+  Fe acc = fe_pick4(c, zero, one, one, zero);   // the identity
   for (int win = 63; win >= 0; win--) {
-    acc = ext_dbl(ext_dbl(ext_dbl(ext_dbl(acc))));
-    acc = ext_madd_base(acc, s_win[win * stride] & 15);
-    acc = ext_add(acc, tab[h_win[win * stride] & 15]);
+    const int sd = s_win[win * stride] & 15;
+    const int hd = h_win[win * stride] & 15;
+    acc = g_dbl(g_dbl(g_dbl(g_dbl(acc, c), c), c), c);
+    Fe base;
+#pragma unroll
+    for (int l = 0; l < 10; l++) base.v[l] = btab[l * 64 + sd * 4 + c];
+    acc = g_add(acc, c, base);
+    acc = g_add(acc, c, fe_load_row(tab, hd, tab_stride));
   }
 
-  // encode(acc) == (r_y, r_sign)
-  const Fe zi = fe_inv(acc.z);
-  const Fe xa = fe_canon(fe_mul(acc.x, zi));
-  const Fe ya = fe_canon(fe_mul(acc.y, zi));
-  const Fe r = fe_from_w24(r_y, stride);
-  int32_t diff = 0;
-#pragma unroll
-  for (int i = 0; i < 10; i++) diff |= ya.v[i] ^ r.v[i];
-  const bool parity_ok = ((xa.v[0] & 1) != 0) == (r_sign != 0);
-  return valid && diff == 0 && parity_ok;
+  // lane 0: X - x_R Z, lane 1: Y - y_R Z
+  const Fe z = fe_shfl(acc, 2);
+  const bool eq = fe_iszero(fe_sub(acc,
+                                   fe_mul(fe_load_row(tab, 16, tab_stride),
+                                          z)));
+  int32_t ok = valid && (c >= 2 || eq);
+  ok &= ED_SHFL_XOR(ok, 1);
+  ok &= ED_SHFL_XOR(ok, 2);
+  return ok != 0;
 }

@@ -52,7 +52,9 @@ def _fe10(x: int) -> List[int]:
 
 def kernel_constants():
     """(consts (3, 10), btab (16, 3, 10)) int32 tensors on the CPU: D, 2D,
-    sqrt(-1) and the base niels table, uploaded to constant memory."""
+    sqrt(-1), uploaded to constant memory, and the base niels table,
+    uploaded to global memory in the kernel's per-lane order (each block
+    copies it to shared memory)."""
     from tpubft_torch.ops import ed25519 as ops
     consts = torch.tensor([_fe10(ops.D), _fe10(ops.K2D),
                            _fe10(ops.SQRT_M1)], dtype=torch.int32)
@@ -180,7 +182,10 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-# ---- what one verify costs, from the representation (csrc header) ----
+# ---- what one verify costs, from the kernel (csrc/ed25519_field.cuh) ----
+
+LANES = 4                      # lanes (threads) per signature
+
 
 def _chain_counts(tail_sqr: int) -> tuple:
     """(squares, multiplies) of the shared 2^250-1 chain plus its tail."""
@@ -188,26 +193,65 @@ def _chain_counts(tail_sqr: int) -> tuple:
     return sqr, 10 + 1
 
 
-def field_ops_per_verify() -> Dict[str, int]:
-    """Field multiplies and squares one lane of the verify kernel runs
-    (fixed: the kernel has no data-dependent control flow beyond the one
-    conditional sqrt(-1) multiply, counted as taken)."""
+def lane_ops() -> Dict[str, Dict[str, int]]:
+    """Field squares and multiplies one lane of a signature's group runs,
+    by phase (fixed: the kernel has no data-dependent control flow)."""
     p58_s, p58_m = _chain_counts(2)
-    inv_s, inv_m = _chain_counts(5)
-    # decompress: y^2, v^2, v3^2, x^2 squares; y2*d, v^2*v, v3^2*v, u*v7,
-    # u*v3, *w, v*x^2, *sqrt(-1), x*y multiplies
-    dec_s, dec_m = 4 + p58_s, 9 + p58_m
-    table_m = 14 * 9                           # 14 extended adds
-    ladder_s = WINDOWS * 4 * 4                 # 4 doublings x 4 squares
-    ladder_m = WINDOWS * (4 * 4 + 7 + 9)       # + mixed add + extended add
-    comp_s, comp_m = inv_s, inv_m + 2
-    return {"sqr": dec_s + ladder_s + comp_s,
-            "mul": dec_m + table_m + ladder_m + comp_m}
+    # decompress (A on lanes 0, 2; R on lanes 1, 3): y^2, v^2, v3^2, x^2
+    # squares; y2*d, v^2*v, v3^2*v, u*v7, u*v3, *w, v*x^2 and the selected
+    # *sqrt(-1) multiplies
+    # table: x y and 2d x y, the doubling of -A (a square and a multiply),
+    # 13 additions (two steps) each with its cached conversion, and the
+    # last entry's conversion
+    # ladder: per window four doublings (a square, a multiply), the mixed
+    # and the table addition (two multiplies each)
+    # compare: x_R Z or y_R Z
+    return {"decompress": {"sqr": 4 + p58_s, "mul": 8 + p58_m},
+            "table": {"sqr": 1, "mul": 2 + 1 + 13 * 3 + 1},
+            "ladder": {"sqr": WINDOWS * 4, "mul": WINDOWS * (4 + 2 + 2)},
+            "compare": {"sqr": 0, "mul": 1}}
 
 
-def imad_per_verify() -> Dict[str, int]:
-    """IMAD.WIDE (32x32->64) and IMAD (32-bit, the 19x precomputes) per
-    verify: a multiply is 100 + 9, a square 55 + 9."""
-    ops = field_ops_per_verify()
+def field_ops_per_verify() -> Dict[str, int]:
+    """Field multiplies and squares the kernel executes for one signature:
+    all four lanes of its group (each point decompressed on two lanes, a
+    multiply by 1 or 2 where a lane has no work in a step)."""
+    phases = lane_ops().values()
+    return {k: LANES * sum(p[k] for p in phases) for k in ("sqr", "mul")}
+
+
+def function_ops_per_verify() -> Dict[str, int]:
+    """Field multiplies and squares one strict verify needs, however it is
+    scheduled: the work of the bound. A and R decompressed once each (the
+    data-dependent *sqrt(-1) left out), x y and 2d T of -A, 14 table
+    additions of 8 multiplies with the cached -A and each new entry's 2d T,
+    64 windows of four doublings (4 squares, 4 multiplies), a mixed
+    addition (7) and a cached addition (8), and the projective compare (2).
+    No multiply by a small integer is counted."""
+    p58_s, p58_m = _chain_counts(2)
+    dec_s, dec_m = 4 + p58_s, 7 + p58_m
+    return {"sqr": 2 * dec_s + WINDOWS * 4 * 4,
+            "mul": 2 * dec_m + 2 + 14 * (8 + 1)
+            + WINDOWS * (4 * 4 + 7 + 8) + 2}
+
+
+def critical_path_steps() -> Dict[str, int]:
+    """Dependent field operations on a signature's critical path: the
+    decompression chain, the table (the x y / 2d x y pair overlaps the
+    doubling of -A, each conversion the next addition's first step), 12
+    steps a window and the compare."""
+    p58_s, p58_m = _chain_counts(2)
+    steps = {"decompress": 7 + p58_s + p58_m + 3,
+             "table": 2 + 13 * 2 + 1,
+             "ladder": WINDOWS * 12,
+             "compare": 1}
+    steps["total"] = sum(steps.values())
+    return steps
+
+
+def imad_per_verify(ops: Dict[str, int]) -> Dict[str, int]:
+    """IMAD.WIDE (32x32->64) and IMAD (32-bit, the 19x precomputes) of
+    `ops` field operations a verify: a multiply is 100 + 9, a square
+    55 + 9."""
     return {"imad_wide": 100 * ops["mul"] + 55 * ops["sqr"],
             "imad": 9 * (ops["mul"] + ops["sqr"])}

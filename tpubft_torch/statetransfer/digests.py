@@ -4,10 +4,11 @@ tpubft/statetransfer/manager.py::StateTransferManager._window_digests).
 A completed window of raw blocks is digested in one batched device call
 (ops/sha256.sha256_batch_mixed: block sizes vary, so the masked contract
 runs) once it holds `threshold` blocks, and by hashlib below that. As in
-the reference, a device call that raises a RuntimeError (no card, a
-failed launch, an OPEN breaker) degrades to hashlib with the same
-digests; here each such fallback is counted in `DEGRADED` and logged.
-Anything else (a wrapper refusing its inputs, a failed build) raises.
+the reference, a device call that raises a RuntimeError (a failed
+launch, an OPEN breaker) degrades to hashlib with the same digests; here
+each such fallback is counted in `DEGRADED` and logged. Anything else
+(no card at all, `device.NoDevice`; a wrapper refusing its inputs; a
+failed build) raises.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from tpubft_torch.device import NoDevice
 from tpubft_torch.ops import sha256 as _sha
 from tpubft_torch.utils.logging import get_logger
 
@@ -36,6 +38,8 @@ def window_digests(raws: Sequence[bytes], use_device: bool = True,
     if use_device and len(raws) >= threshold:
         try:
             return _sha.sha256_batch_mixed(raws, device)
+        except NoDevice:
+            raise
         except RuntimeError as exc:   # device loss degrades, not fails
             DEGRADED += 1
             _log.warning("state-transfer window of %d blocks digested on "
