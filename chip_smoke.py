@@ -7,9 +7,12 @@ builds the CUDA kernels from the sources in the checkout (one nvcc per
 source, all started together) and runs these phases in order, one JSON
 line each; any failure exits non-zero:
 
-  device   the card's name, power limit and SM clock, the builds, and the
-           SHA-256 kernel's per-block loop read from its SASS (cuobjdump):
-           its 32-bit integer instructions bound that kernel below;
+  device   the card's name, power limit and SM clock, the builds, and from
+           the SHA-256 kernel's SASS (cuobjdump) the opcodes of its longest
+           loop (a diagnostic); SHA-256's bound counts the algorithm's
+           operations (ops/sha256_cuda.OPS_PER_COMPRESSION), not a build's,
+           and its chain floor takes the cycles a round from
+           ops/sha256_cuda.ROUND_CYCLES;
   ladder   the bring-up ladder (python -m tpubft_torch.tools.bringup):
            six rungs at 1024 lanes — bringup_copy, fe_carry, fe_mul,
            fe_inv, fe_table_gather and the verify kernel — each against
@@ -49,19 +52,27 @@ line each; any failure exits non-zero:
            per launch; the stress run launched once per device level;
   digest   the ledger's raw blocks in state-transfer windows of 64 through
            the window-digest helper (sha256_batch_mixed), plus one window
-           of mixed block sizes, against hashlib: config 1's SHA-256 path;
+           of mixed block sizes, against hashlib: config 1's SHA-256 path,
+           one launch a window and one copy each way, the bytes sent equal
+           to the window's raw bytes plus its offsets. Per window the
+           call's time, its steps (host pack and pinned staging; copy
+           in, kernel and copy out between CUDA events) and hashlib's; then windows of 16 to
+           256 blocks, device call against hashlib, 20 calls each
+           (tpubft_torch/tools/digest_breakdown.py);
   rate     the verify kernel alone (CUDA events, after warm-up) at B = 100,
            192, 256, 1024 and 16384, the host prepare_batch time at the
            same B and the plain version's time at B=1024, with the
            kernel's critical path in dependent field steps; the SHA-256
-           kernel alone at
-           B = 192, 1024 and 16384 two-block messages beside the host
-           prepare, hashlib over the same messages and the plain version
-           at B=1024;
+           kernel alone at B = 192, 1024, 4096 and 16384 two-block Merkle
+           messages (per call and by a CUDA graph) beside the host pack,
+           hashlib over the same messages and the plain version at
+           B=1024;
   kernels  every kernel with its launches on its path (the plane, the
            ladder, the state-transfer digests), its match against the plain
            version, its device time (`ms`, a CUDA graph) and host enqueue
-           time (`host_ms`), its bound and the plain version's time.
+           time (`host_ms`), its bound and the plain version's time;
+           SHA-256 also with its chain floor, and matched against its plain
+           version on both windows and a 1024-node Merkle level.
 
 Then the card's name and power limit as nvidia-smi reports them, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -203,7 +214,9 @@ def phase_device(torch) -> dict:
             "build_s": build_s, "build_wall_s": build_wall_s,
             "ptxas": dict(_build.ptxas_report),
             "sha256_sass_loop": dict(loop.most_common()),
-            "sha256_int32_per_compression": sha256_cuda.int32_ops(loop)}
+            "sha256_sass_loop_int32": sha256_cuda.int32_ops(loop),
+            "sha256_ops_per_compression": sha256_cuda.OPS_PER_COMPRESSION,
+            "sha256_round_cycles": sha256_cuda.ROUND_CYCLES}
     emit(info)
     return info
 
@@ -675,51 +688,73 @@ def phase_ledger(torch, dev, blocks: int = 800, chunk: int = 64) -> dict:
     return out
 
 
-def phase_digest(torch, dev, raws, window: int = 64) -> dict:
+def phase_digest(torch, dev, raws, window: int = 64, reps: int = 20
+                 ) -> dict:
     """State-transfer window digests of the ledger's raw blocks, and one
-    window of mixed sizes, against hashlib."""
+    window of mixed sizes, against hashlib; then each window's steps and
+    the crossover sweep (measurement launches, not counted)."""
     import hashlib
 
-    from tpubft_torch import convert, testing
-    from tpubft_torch.kvbc import create_blockchain
     from tpubft_torch.ops import sha256 as sha
     from tpubft_torch.ops import sha256_cuda
     from tpubft_torch.statetransfer import digests
-    from tpubft_torch.storage import MemoryDB
+    from tpubft_torch.tools import digest_breakdown as bd
 
     windows = [raws[i:i + window] for i in range(0, len(raws), window)]
-    big = create_blockchain(MemoryDB(), use_device_hashing=False)
-    big.add_blocks([convert.block_updates(rows) for rows in
-                    testing.kvbcbench_rows(window, big_every=8)])
-    windows.append([big.get_raw_block(b) for b in range(1, window + 1)])
+    windows.append(bd.ledger_raws(window, big_every=8))
     digests.DEGRADED = 0
     reset_all_launches()
     rows = []
     for w in windows:
         before = sha256_cuda.LAUNCHES["sha256"]
+        copies = dict(sha.COPIES)
         t0 = time.perf_counter()
         got = digests.window_digests(w, use_device=True)
         ms = (time.perf_counter() - t0) * 1e3
-        rows.append({"blocks": len(w),
+        rows.append({"blocks": len(w), "bytes": sum(map(len, w)),
                      "expect_launch": len(w) >= digests.DEVICE_DIGEST_THRESHOLD,
                      "block_counts": sorted({sha.blocks_needed(len(r))
                                              for r in w}),
                      "launches": sha256_cuda.LAUNCHES["sha256"] - before,
                      "ms": ms,
+                     **{k: sha.COPIES[k] - copies[k] for k in sha.COPIES},
                      "equal": got == [hashlib.sha256(r).digest()
                                       for r in w]})
+    launches = sha256_cuda.LAUNCHES["sha256"]
+    for row, w in zip(rows, windows):
+        row["raw_plus_offsets"] = row["bytes"] + 8 * (len(w) + 1)
+        t0 = time.perf_counter()
+        [hashlib.sha256(r).digest() for r in w]
+        row["hashlib_ms"] = (time.perf_counter() - t0) * 1e3
+        if row["expect_launch"]:
+            row["steps"] = bd.steps(w, dev)
     out = {"phase": "digest", "window": window, "windows": rows,
-           "launches": sha256_cuda.LAUNCHES["sha256"],
-           "degraded": digests.DEGRADED}
+           "first_call_ms": rows[0]["ms"],
+           "later_calls_ms": bd.spread([r["ms"] for r in rows[1:]]),
+           "launches": launches, "degraded": digests.DEGRADED,
+           "crossover": bd.sweep(raws, windows[-1], dev, reps)}
     emit(out)
+    problems = []
     if not all(r["equal"] for r in rows):
-        raise AssertionError("window digests differ from hashlib")
+        problems.append("window digests differ from hashlib")
     if out["degraded"] or any(r["launches"] != int(r["expect_launch"])
                               for r in rows):
-        raise AssertionError("a window of at least the device threshold "
-                             "did not take exactly one launch")
+        problems.append("a window of at least the device threshold did "
+                        "not take exactly one launch")
+    for r in rows:
+        if r["expect_launch"] and (
+                r["h2d"] != 1 or r["d2h"] != 1
+                or r["h2d_bytes"] != r["raw_plus_offsets"]
+                or r["d2h_bytes"] != 32 * r["blocks"]):
+            problems.append(f"window of {r['blocks']} blocks copied "
+                            f"{r['h2d']} x {r['h2d_bytes']} bytes in, "
+                            f"{r['d2h']} x {r['d2h_bytes']} out; expected "
+                            f"1 x {r['raw_plus_offsets']} and "
+                            f"1 x {32 * r['blocks']}")
     if len(rows[-1]["block_counts"]) < 2:
-        raise AssertionError("the mixed window has one block count")
+        problems.append("the mixed window has one block count")
+    if problems:
+        raise AssertionError("; ".join(problems))
     out["window_raws"] = (windows[0], windows[-1])
     return out
 
@@ -727,11 +762,12 @@ def phase_digest(torch, dev, raws, window: int = 64) -> dict:
 RATE_BATCHES = (100, 192, 256, 1024, 16384)
 
 
-def phase_rate(torch, dev, sm_clock_mhz: float, smi: str,
-               sha_ops: int) -> dict:
+SHA_RATE_BATCHES = (192, 1024, 4096, 16384)
+
+
+def phase_rate(torch, dev, sm_clock_mhz: float, smi: str) -> dict:
     """Verify-kernel time at RATE_BATCHES; host prepare time; the plain
-    version's time at 1024. SHA-256 at Merkle-level shapes; `sha_ops` is
-    its integer instructions per compression."""
+    version's time at 1024. SHA-256 at Merkle-level shapes."""
     import numpy as np
 
     from tpubft_torch.crypto.cpu import Ed25519Signer
@@ -761,8 +797,8 @@ def phase_rate(torch, dev, sm_clock_mhz: float, smi: str,
             row["plain_ms"] = cuda_ms(lambda: ops.plain_verify_kernel(*args),
                                       1)
         rows.append(row)
-    sha_rows = [sha256_rate_row(torch, dev, b, sm_clock_mhz, sha_ops)
-                for b in (192, 1024, 16384)]
+    sha_rows = [sha256_rate_row(torch, dev, b, sm_clock_mhz)
+                for b in SHA_RATE_BATCHES]
     out = {"phase": "rate", "card": smi,
            "clocks_sm_now": nvidia_smi("clocks.sm,power.draw"),
            "verify_critical_path_steps": kc.critical_path_steps(),
@@ -785,47 +821,54 @@ def merkle_messages(b: int, seed: int = 5):
     return [b"\x01" + rng.bytes(64) for _ in range(b)]
 
 
-def sha256_work(words, nblocks, ops_per_compression: int) -> tuple:
-    """(operations, bytes) of one SHA-256 launch on these inputs: the
-    compressions this data needs at the kernel's own integer instructions
-    per compression (its SASS), the blocks compressed read once, the
-    block counts read once, digests written once."""
-    nb = words.shape[1]
-    compressions = int(nblocks.clamp(min=0, max=nb).sum())
-    nbytes = compressions * 64 + nblocks.numel() * 4 + words.shape[0] * 32
-    return compressions * ops_per_compression, nbytes
+def sha256_inputs(msgs, dev):
+    """The kernel's inputs for a batch, staged as the host half stages
+    them: (data, offsets) on the card and the host offsets."""
+    from tpubft_torch.ops import sha256 as sha
+    blob, offsets = sha.pack(msgs)
+    return (*sha.to_device(blob, offsets, dev), offsets)
 
 
-def sha256_rate_row(torch, dev, b: int, sm_clock_mhz: float,
-                    sha_ops: int) -> dict:
-    """The SHA-256 kernel alone on b two-block messages, the host prepare
-    and hashlib over the same messages; the plain version at B=1024."""
+def sha256_rate_row(torch, dev, b: int, sm_clock_mhz: float) -> dict:
+    """The SHA-256 kernel alone on b two-block messages (per call by CUDA
+    events, as earlier rows were timed, and by a CUDA graph), the host
+    pack and hashlib over the same messages; the plain version at
+    B=1024."""
     import hashlib
 
     from tpubft_torch.ops import sha256 as sha
     from tpubft_torch.ops import sha256_cuda
     msgs = merkle_messages(b)
     t0 = time.perf_counter()
-    words = sha.prepare(msgs)
+    sha.pack(msgs)
     prep_ms = (time.perf_counter() - t0) * 1e3
-    w, nb = sha.to_tensors(words, [words.shape[1]] * b, dev)
+    data, offs, host = sha256_inputs(msgs, dev)
     t0 = time.perf_counter()
     want = [hashlib.sha256(m).digest() for m in msgs]
     hashlib_ms = (time.perf_counter() - t0) * 1e3
-    got = sha.digest_words_to_bytes(
-        sha.digests_from_tensor(sha256_cuda.sha256(w, nb)))
-    ms = cuda_ms(lambda: sha256_cuda.sha256(w, nb), 50 if b <= 1024 else 20)
-    row = {"batch": b, "blocks_per_msg": words.shape[1], "ms": ms,
-           "hashes_per_s": b / ms * 1e3, "prepare_ms": prep_ms,
-           "hashlib_ms": hashlib_ms, "equal_hashlib": got == want,
-           **work_bound_ms(*sha256_work(w, nb, sha_ops), sm_clock_mhz)}
+    raw = sha256_cuda.sha256_raw(data, offs, host).cpu().numpy().tobytes()
+
+    def call():
+        return sha256_cuda.sha256_raw(data, offs, host)
+    lengths = [len(m) for m in msgs]
+    row = {"batch": b, "blocks_per_msg": sha.blocks_needed(len(msgs[0])),
+           "ms": cuda_ms(call, 50 if b <= 1024 else 20),
+           "graph_ms": graph_ms(call, 20),
+           "prepare_ms": prep_ms, "hashlib_ms": hashlib_ms,
+           "equal_hashlib": [raw[i:i + 32] for i in range(0, len(raw), 32)]
+           == want,
+           **work_bound_ms(*sha256_cuda.work(lengths), sm_clock_mhz),
+           "chain_floor_ms": sha256_cuda.chain_floor_ms(lengths,
+                                                        sm_clock_mhz)}
+    row["hashes_per_s"] = b / row["ms"] * 1e3
     if b == 1024:
-        row["plain_ms"] = cuda_ms(lambda: sha.plain_sha256(w, nb), 1)
+        row["plain_ms"] = cuda_ms(lambda: sha.plain_sha256_raw(data, offs),
+                                  1)
     return row
 
 
 def phase_kernels(torch, dev, plane, kernel, ladder, ledger, digest,
-                  sm_clock_mhz, sha_ops) -> dict:
+                  sm_clock_mhz) -> dict:
     """Every kernel, timed at its path's shape: the verify kernel at one
     PrePrepare drain of 100 signatures, the ladder kernels at the ladder's
     1024 lanes, SHA-256 at one state-transfer window of 64 raw blocks."""
@@ -869,8 +912,7 @@ def phase_kernels(torch, dev, plane, kernel, ladder, ledger, digest,
                      "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "path": "ladder"})
-    rows.append(sha256_kernel_row(torch, dev, ledger, digest, sm_clock_mhz,
-                                  sha_ops))
+    rows.append(sha256_kernel_row(torch, dev, ledger, digest, sm_clock_mhz))
     out = {"kernels": rows}
     emit(out)
     bad = [r["name"] for r in rows if r["max_abs_err"]]
@@ -893,56 +935,55 @@ LADDER_REPLACES = {
     "fe_table_gather": "tools/pallas_bringup.py:175"}
 
 
-def window_tensors(sha, raws, dev):
-    """The kernel's inputs for one state-transfer window, padded as
-    sha256_batch_mixed pads it (to a power of two; the uniform layout when
-    every block needs the same count, the masked one otherwise)."""
-    import numpy as np
-    m = 1 << (len(raws) - 1).bit_length()
-    msgs = list(raws) + [raws[0]] * (m - len(raws))
-    if len({sha.blocks_needed(len(r)) for r in msgs}) == 1:
-        words = sha.prepare(msgs)
-        nblocks = np.full(m, words.shape[1], dtype=np.uint32)
-    else:
-        words, nblocks = sha.prepare_mixed(msgs)
-    return sha.to_tensors(words, nblocks, dev)
-
-
-def sha256_kernel_row(torch, dev, ledger, digest, sm_clock_mhz,
-                      sha_ops) -> dict:
+def sha256_kernel_row(torch, dev, ledger, digest, sm_clock_mhz) -> dict:
     """The SHA-256 kernel at config 1's launch shape, a state-transfer
-    window of 64 raw ledger blocks, against its plain version there and on
-    the mixed window; launches are the digest phase's (the migrate-chunk
-    ledger launched none), the stress ledger's beside them."""
+    window of 64 raw ledger blocks, against its plain version there, on
+    the mixed window and on a 1024-node Merkle level; launches are the
+    digest phase's (the migrate-chunk ledger launched none), the stress
+    ledger's beside them."""
     import hashlib
 
     from tpubft_torch.ops import sha256 as sha
     from tpubft_torch.ops import sha256_cuda
     first, mixed = digest["window_raws"]
-    err = 0
-    for raws in (mixed, first):
-        w, nb = window_tensors(sha, raws, dev)
-        got = sha256_cuda.sha256(w, nb)
-        plain = sha.plain_sha256(w, nb)
-        err = max(err, int((got.long() - plain.long()).abs().max()))
+    errs, inputs = {}, {}
+    for name, msgs in (("mixed_window", mixed),
+                       ("merkle_level_1024", merkle_messages(1024, seed=8)),
+                       ("window", first)):
+        data, offs, host = inputs[name] = sha256_inputs(msgs, dev)
+        got = sha256_cuda.sha256_raw(data, offs, host)
+        plain = sha.plain_sha256_raw(data, offs)
+        errs[name] = int((got.int() - plain.int()).abs().max())
     t0 = time.perf_counter()
     for r in first:
         hashlib.sha256(r).digest()
     hashlib_ms = (time.perf_counter() - t0) * 1e3
+
+    def call():
+        return sha256_cuda.sha256_raw(data, offs, host)
+    lengths = [len(r) for r in first]
+    bound = work_bound_ms(*sha256_cuda.work(lengths), sm_clock_mhz)
     return {"name": "sha256", "route": "cuda",
             "source": "tpubft_torch/ops/csrc/sha256.cu",
             "replaces": "tpubft/ops/sha256.py:82 (and :178)",
             "launches": digest["launches"]
             + ledger["migrate_chunks"]["sha256_launches"],
             "stress_launches": ledger["stress"]["sha256_launches"],
-            "max_abs_err": err,
-            "batch": w.shape[0], "blocks_per_msg": w.shape[1],
-            "host_ms": cuda_ms(lambda: sha256_cuda.sha256(w, nb), 50),
-            "ms": graph_ms(lambda: sha256_cuda.sha256(w, nb), 50),
-            "plain_ms": cuda_ms(lambda: sha.plain_sha256(w, nb), 1),
-            **{k: v for k, v in work_bound_ms(
-                *sha256_work(w, nb, sha_ops), sm_clock_mhz).items()
-               if k in ("bound_ms", "bound_by")},
+            "max_abs_err": max(errs.values()), "max_abs_err_by_input": errs,
+            "batch": len(first),
+            "compressions": int(sum(sha.blocks_needed(n) for n in lengths)),
+            "host_ms": cuda_ms(call, 50),
+            "ms": graph_ms(call, 50),
+            "mixed_window_ms": graph_ms(
+                lambda: sha256_cuda.sha256_raw(*inputs["mixed_window"]), 20),
+            "mixed_window_chain_floor_ms": sha256_cuda.chain_floor_ms(
+                [len(r) for r in mixed], sm_clock_mhz),
+            "plain_ms": cuda_ms(lambda: sha.plain_sha256_raw(data, offs), 1),
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "ops": bound["ops"], "bytes": bound["bytes"],
+            "chain_floor_ms": sha256_cuda.chain_floor_ms(lengths,
+                                                         sm_clock_mhz),
+            "round_cycles": sha256_cuda.ROUND_CYCLES,
             "library_ms": None,
             "hashlib_host_ms": hashlib_ms,
             "path": "state-transfer digests"}
@@ -962,12 +1003,10 @@ def main() -> int:
     ladder = phase_ladder(torch, dev, clock)
     kernel = phase_kernel(torch, dev)
     plane = phase_plane(torch, dev)
-    sha_ops = info["sha256_int32_per_compression"]
     ledger = phase_ledger(torch, dev)
     digest = phase_digest(torch, dev, ledger.pop("raws"))
-    phase_rate(torch, dev, clock, info["nvidia_smi"], sha_ops)
-    phase_kernels(torch, dev, plane, kernel, ladder, ledger, digest, clock,
-                  sha_ops)
+    phase_rate(torch, dev, clock, info["nvidia_smi"])
+    phase_kernels(torch, dev, plane, kernel, ladder, ledger, digest, clock)
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

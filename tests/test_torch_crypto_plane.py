@@ -364,3 +364,33 @@ def test_bls_schemes_wait_for_their_slice():
         C.make_threshold_verifier("multisig-bls", 3, 4, None, [])
     with pytest.raises(ValueError, match="adaptive"):
         SYS.register_builtin("adaptive")
+
+
+def test_unported_scheme_never_charges_the_device_breaker(both_keys):
+    """A batch that holds an ECDSA principal is refused before the
+    breaker's attempt: three such batches leave the breaker closed with
+    no failure, and the next all-Ed25519 batch still rides the device."""
+    ref, port = both_keys
+    mixed_keys = dataclasses.replace(port.for_node(0),
+                                     client_sig_scheme="secp256k1")
+    sm = S.SigManager(mixed_keys, batch_fn=C.verify_batch_mixed,
+                      device_min_batch=1, memo_capacity=0)
+    replica_items = [it for it in _client_items(ref, n_items=16)
+                     if it[0] in ref.replica_pubkeys]
+    client = sorted(ref.client_pubkeys)[0]
+    breaker = device_breaker()
+    before = breaker.snapshot()
+    for j in range(breaker.failure_threshold):
+        batch = replica_items + [(client, b"ecdsa-%d" % j, b"\0" * 64)]
+        with pytest.raises(NotImplementedError):
+            sm.verify_batch(batch)
+    after = breaker.snapshot()
+    assert after["failures"] == before["failures"]
+    assert breaker.state == "closed"
+    c = sm.metrics.snapshot()["counters"]
+    assert c["degraded_verifies"] == 0 and c["sigs_device_dispatched"] == 0
+    want = RS.SigManager(ref.for_node(0)).verify_batch(replica_items)
+    assert sm.verify_batch(replica_items) == want
+    c = sm.metrics.snapshot()["counters"]
+    assert c["sigs_device_dispatched"] == len(replica_items)
+    assert c["batched_verifies"] == len(replica_items)

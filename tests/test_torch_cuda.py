@@ -83,31 +83,57 @@ def test_field_kernels_match_python_ints(card):
 
 
 def _sha_messages(batch, mixed):
+    """Merkle nodes (65 bytes: every start residue mod 4 and 16), or
+    lengths around the padding edges, up to 69 blocks at small batch."""
     rng = np.random.default_rng(batch)
     if not mixed:
         return [b"\x01" + rng.bytes(64) for _ in range(batch)]
-    sizes = [0, 55, 56, 63, 64, 119, 300, 4096]
+    sizes = [0, 1, 55, 56, 63, 64, 119, 120, 300]
+    if batch <= 1024:
+        sizes.append(4400)
     return [rng.bytes(sizes[i % len(sizes)]) for i in range(batch)]
 
 
 @pytest.mark.parametrize("mixed", [False, True], ids=["uniform", "mixed"])
-@pytest.mark.parametrize("batch", [1, 192, 1024])
+@pytest.mark.parametrize("batch", [1, 3, 33, 64, 1024, 16384])
 def test_sha256_kernel_matches_hashlib_and_plain(card, batch, mixed):
     msgs = _sha_messages(batch, mixed)
-    if mixed:
-        words, nblocks = sha.prepare_mixed(msgs)
-    else:
-        words = sha.prepare(msgs)
-        nblocks = np.full(batch, words.shape[1])
-    w, nb = sha.to_tensors(words, nblocks, card)
+    blob, offsets = sha.pack(msgs)
+    data, offs = sha.to_device(blob, offsets, card)
+    assert data.data_ptr() % 4 == 0
     before = sha256_cuda.LAUNCHES["sha256"]
-    got = sha.sha256_kernel(w, nb)
+    got = sha.sha256_kernel(data, offs)
     assert sha256_cuda.LAUNCHES["sha256"] == before + 1
-    assert torch.equal(got, sha.plain_sha256(w, nb))
-    assert sha.digest_words_to_bytes(sha.digests_from_tensor(got)) == \
-        [hashlib.sha256(m).digest() for m in msgs]
-    assert sha.sha256_batch_mixed(msgs, device=card) == \
-        [hashlib.sha256(m).digest() for m in msgs]
+    assert torch.equal(got, sha.plain_sha256_raw(data, offs))
+    want = [hashlib.sha256(m).digest() for m in msgs]
+    raw = got.cpu().numpy().tobytes()
+    assert [raw[i:i + 32] for i in range(0, len(raw), 32)] == want
+    assert sha.sha256_batch_mixed(msgs, device=card) == want
+
+
+@pytest.mark.parametrize("case", ["cpu", "dtype", "non_monotone",
+                                  "wrong_end", "host_wrong_end"])
+def test_sha256_wrapper_refuses_bad_offsets(card, case):
+    blob, offsets = sha.pack(_sha_messages(33, True))
+    data, offs = sha.to_device(blob, offsets, card)
+    host = None
+    if case == "cpu":
+        offs = offs.cpu()
+    elif case == "dtype":
+        offs = offs.to(torch.int32)
+    elif case == "non_monotone":
+        offs = offs.clone()
+        offs[[5, 6]] = offs[[6, 5]]
+    elif case == "wrong_end":
+        offs = offs.clone()
+        offs[-1] -= 1
+    else:
+        host = offsets.copy()
+        host[-1] -= 1
+    before = sha256_cuda.LAUNCHES["sha256"]
+    with pytest.raises(ValueError):
+        sha256_cuda.sha256_raw(data, offs, host)
+    assert sha256_cuda.LAUNCHES["sha256"] == before
 
 
 @pytest.mark.parametrize("rung", [0, 1, 4])
@@ -131,13 +157,37 @@ def test_wrappers_refuse_bad_cuda_tensors(card, case):
     good = torch.zeros((F.NL, 64), dtype=torch.int32, device=card)
     bad = {"dtype": good.to(torch.int64), "shape": good[:12].contiguous(),
            "contiguity": good.t().contiguous().t()}[case]
-    words = torch.zeros((4, 2, 16), dtype=torch.int32, device=card)
-    nblocks = torch.full((4,), 2, dtype=torch.int32, device=card)
-    bad_words = {"dtype": words.to(torch.int64),
-                 "shape": words[:, :, :8].contiguous(),
-                 "contiguity": words.transpose(0, 1)}[case]
+    data = torch.zeros(256, dtype=torch.uint8, device=card)
+    offsets = torch.tensor([0, 64, 128], dtype=torch.int64, device=card)
+    bad_data = {"dtype": data.to(torch.int32)[:128],
+                "shape": data.view(2, 128),
+                "contiguity": data[::2]}[case]
     for call in (lambda: bu.bringup_copy(bad), lambda: bu.fe_carry(bad),
                  lambda: bu.fe_table_gather(bad, good[:, 0].contiguous()),
-                 lambda: sha256_cuda.sha256(bad_words, nblocks)):
+                 lambda: sha256_cuda.sha256_raw(bad_data, offsets)):
         with pytest.raises(ValueError):
             call()
+
+
+def test_sha256_roundtrip_refuses_bad_staging(card):
+    """The host half's one-call round trip takes uint8 host buffers whose
+    head holds batch+1 offsets; anything else raises before the card."""
+    blob, offsets = sha.pack(_sha_messages(3, True))
+    pinned = torch.empty(offsets.nbytes + len(blob), dtype=torch.uint8,
+                         pin_memory=True)
+    pinned[:offsets.nbytes] = torch.from_numpy(offsets.view(np.uint8))
+    pinned[offsets.nbytes:] = torch.frombuffer(bytearray(blob),
+                                               dtype=torch.uint8)
+    out = torch.empty(96, dtype=torch.uint8, pin_memory=True)
+    before = sha256_cuda.LAUNCHES["sha256"]
+    for args in ((pinned.view(torch.int8), offsets.nbytes, out, 3),
+                 (pinned.to(card), offsets.nbytes, out, 3),
+                 (pinned, offsets.nbytes - 8, out, 3),         # short head
+                 (pinned, offsets.nbytes, out[:64], 3)):       # short out
+        with pytest.raises(ValueError):
+            sha256_cuda.sha256_roundtrip(*args, card)
+    assert sha256_cuda.LAUNCHES["sha256"] == before
+    sha256_cuda.sha256_roundtrip(pinned, offsets.nbytes, out, 3, card)
+    assert out.numpy().tobytes() == b"".join(
+        hashlib.sha256(m).digest() for m in _sha_messages(3, True))
+    assert sha256_cuda.LAUNCHES["sha256"] == before + 1

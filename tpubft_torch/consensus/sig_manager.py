@@ -29,6 +29,7 @@ from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from tpubft_torch.consensus.keys import ClusterKeys
+from tpubft_torch.crypto.cpu import require_ported
 from tpubft_torch.crypto.interfaces import IVerifier
 from tpubft_torch.device import NoDevice
 from tpubft_torch.ops.dispatch import BreakerOpen, device_breaker
@@ -401,11 +402,13 @@ class SigManager:
                 # scalar engines carry the load until the half-open
                 # probe re-admits the device
                 self.degraded_verifies.inc(len(sub))
-            except NoDevice:
-                raise               # no card: a set-up fault, not a loss
+            except (NoDevice, NotImplementedError):
+                # no card is a set-up fault, not a loss; a scheme whose
+                # slice is not ported (ECDSA) has no host engine either,
+                # and is refused before the breaker's attempt
+                raise
             except RuntimeError:
-                # a device failure (a failed launch; NotImplementedError
-                # for a scheme whose slice is not ported) must degrade
+                # a device failure (a failed launch) must degrade
                 # verification, never fail it: the breaker recorded the
                 # failure (trip after N consecutive). A BuildError, a
                 # wrapper's ValueError and any other error raise.
@@ -467,6 +470,10 @@ class SigManager:
             if pk is not None:
                 entries.append((self._scheme_of(a), pk, data, sig))
                 keyed.append(i)
+        # an unported scheme raises here, outside the breaker: it is a gap
+        # of the port, not a failure of the card
+        for scheme in {e[0] for e in entries}:
+            require_ported(scheme)
         # the device ride runs under the circuit breaker: exceptions and
         # latency-SLO breaches count against the failure budget, an OPEN
         # breaker raises BreakerOpen before building any device work

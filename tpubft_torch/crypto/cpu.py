@@ -79,6 +79,14 @@ class Ed25519Verifier(IVerifier):
         return ED25519_SIG_LEN
 
 
+def require_ported(scheme: str) -> None:
+    """Raise NotImplementedError for a scheme whose slice is not ported
+    (ECDSA). Callers run it before any device work, so an unported scheme
+    never reaches the device breaker as a device failure."""
+    if scheme in _ECDSA_SCHEMES:
+        raise NotImplementedError(f"{scheme} verification is not ported yet")
+
+
 def make_signer(scheme: str, seed: Optional[bytes] = None) -> ISigner:
     if scheme == "ed25519":
         return Ed25519Signer.generate(seed=seed)
@@ -90,6 +98,5 @@ def make_signer(scheme: str, seed: Optional[bytes] = None) -> ISigner:
 def make_verifier(scheme: str, public_key_bytes: bytes) -> IVerifier:
     if scheme == "ed25519":
         return Ed25519Verifier(public_key_bytes)
-    if scheme in _ECDSA_SCHEMES:
-        raise NotImplementedError(f"{scheme} verification is not ported yet")
+    require_ported(scheme)
     raise ValueError(f"unknown signature scheme {scheme}")

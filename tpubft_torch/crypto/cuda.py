@@ -28,13 +28,11 @@ from __future__ import annotations
 import struct
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from tpubft_torch.crypto.cpu import require_ported
 from tpubft_torch.crypto.interfaces import IVerifier
 from tpubft_torch.crypto.systems import (MultisigEd25519Verifier,
                                          pack_multisig_vector)
 from tpubft_torch.device import NoDevice
-
-_ECDSA_SCHEMES = ("ecdsa-secp256k1", "secp256k1", "ecdsa-secp256r1",
-                  "secp256r1", "ecdsa-p256")
 
 
 def verify_batch_items(items: Sequence[Tuple[bytes, bytes, bytes]]
@@ -51,19 +49,18 @@ def verify_batch_mixed(items: Sequence[Tuple[str, bytes, bytes, bytes]]
     """SigManager's cross-principal batch entry: (scheme, pubkey, data,
     sig) tuples, one device launch per scheme present. Ed25519 rides the
     CUDA kernel; an unknown scheme verifies on the host; ECDSA raises
-    NotImplementedError until its slice."""
+    NotImplementedError until its slice, before any group is launched."""
     groups: Dict[str, List[int]] = {}
     for i, (scheme, _pk, _data, _sig) in enumerate(items):
         groups.setdefault(scheme, []).append(i)
+    for scheme in groups:
+        require_ported(scheme)
     out = [False] * len(items)
     for scheme, idxs in groups.items():
         sub = [items[i] for i in idxs]
         if scheme == "ed25519":
             verdicts = verify_batch_items([(pk, d, s)
                                            for _, pk, d, s in sub])
-        elif scheme in _ECDSA_SCHEMES:
-            raise NotImplementedError(
-                f"{scheme} batch verification is not ported yet")
         else:                       # unknown scheme: host verifiers
             from tpubft_torch.crypto.cpu import make_verifier
             verdicts = []

@@ -1,31 +1,36 @@
 """Batched SHA-256 (port of tpubft/ops/sha256.py).
 
-A batch of messages is padded on the host (FIPS 180-4) into big-endian
-32-bit words and hashed in one device call. On the card the call is the
-hand-written CUDA kernel (ops/sha256_cuda.py, csrc/sha256.cu); for CPU
-tensors it is `plain_sha256`, the plain PyTorch version the kernel is
-held against.
+Contract: the messages of a batch travel as raw bytes, `data` uint8 (N,)
+holding them concatenated and `offsets` int64 (B+1,) their boundaries
+(message i is data[offsets[i]:offsets[i+1]]); the result is (B, 32) uint8
+big-endian digests. `sha256_kernel` routes by device: on the card the
+hand-written CUDA kernel (ops/sha256_cuda.py, csrc/sha256.cu), which pads
+and byte-swaps on the card; for CPU tensors `plain_sha256_raw`, the plain
+PyTorch version the kernel is held against. That one builds the
+reference's layout with tensor ops (`pad_words`: FIPS 180-4 padding into
+big-endian words (B, nb, 16), each message at its own block count) and
+runs `plain_sha256`, the compression of both of the reference's kernels
+(sha256_kernel and sha256_kernel_masked: lane i compresses its first
+nblocks[i] blocks).
 
-Layout, as in the reference: words (B, nb, 16) — message i's block j is
-words[i, j], each entry one big-endian 32-bit word as an integer — and
-digests (B, 8). The host half works in numpy uint32 exactly like the
-reference; on a device the same bits ride an int32 tensor.
-
-One contract serves both of the reference's kernels: `nblocks` (B,)
-gives each lane's own block count, and a lane stops compressing after
-it. The uniform path (`sha256_kernel` of the reference) passes
-nblocks = nb for every lane; the mixed path (`sha256_kernel_masked`)
-passes each message's count, with its words FIPS-padded at that count
-and zero-filled to nb.
+The host half (`sha256_batch`, `sha256_batch_mixed`) is one join of the
+messages, offsets from a cumulative sum, one copy into a pinned staging
+buffer, then one C call (sha256_cuda.sha256_roundtrip): one
+host-to-device copy of offsets and bytes together, the launch, one
+device-to-host copy of the digests into pinned memory and one
+synchronisation; `COPIES` counts the copies and their bytes. For CPU
+tensors the same steps run through `to_device`, `sha256_kernel` and
+`from_device`, which also stage tensors for a caller of the kernel's own
+contract. No batch or block count is rounded up: that bounded the
+reference's compiled XLA shapes, and the digests are the same without it.
 
 Users: the sparse Merkle tree's level hashing (kvbc/sparse_merkle.py)
-and state-transfer window digests (statetransfer/digests.py). Batches
-are padded to the next power of two, as in the reference. The
+and state-transfer window digests (statetransfer/digests.py). The
 reference's mesh tier (sharding a batch across chips) is not ported.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,71 +55,6 @@ H0 = np.array([0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
               dtype=np.uint32)
 
 _M32 = 0xFFFFFFFF
-
-
-# ---------------------------------------------------------------------
-# host half (numpy, byte-identical to the reference)
-# ---------------------------------------------------------------------
-
-def _pad_bytes(msg: bytes, nblocks: int) -> bytes:
-    bitlen = len(msg) * 8
-    data = msg + b"\x80"
-    data += b"\x00" * (nblocks * 64 - 8 - len(data))
-    data += bitlen.to_bytes(8, "big")
-    assert len(data) == nblocks * 64
-    return data
-
-
-def _pad_to_words(msg: bytes, nblocks: int) -> np.ndarray:
-    return np.frombuffer(_pad_bytes(msg, nblocks), dtype=">u4").astype(
-        np.uint32).reshape(nblocks, 16)
-
-
-def blocks_needed(msg_len: int) -> int:
-    return (msg_len + 8) // 64 + 1
-
-
-def prepare(messages: Sequence[bytes]) -> np.ndarray:
-    """Pad a batch of messages to a common block count -> (B, nb, 16)
-    uint32. All messages must need the same number of blocks."""
-    nb = blocks_needed(max(len(m) for m in messages))
-    for m in messages:
-        if blocks_needed(len(m)) != nb:
-            raise ValueError("mixed block counts in one batch")
-    data = b"".join(_pad_bytes(m, nb) for m in messages)
-    return np.frombuffer(data, dtype=">u4").astype(np.uint32).reshape(
-        len(messages), nb, 16)
-
-
-def prepare_mixed(messages: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray]:
-    """Pad a mixed-size batch: each message FIPS-padded at its own block
-    count, zero-filled to a common count rounded up to a power of two.
-    -> (words (B, nb, 16) uint32, nblocks (B,) uint32)."""
-    nbs = [blocks_needed(len(m)) for m in messages]
-    nb_max = 1 << (max(nbs) - 1).bit_length()
-    words = np.zeros((len(messages), nb_max, 16), dtype=np.uint32)
-    for i, (m, nb) in enumerate(zip(messages, nbs)):
-        words[i, :nb] = _pad_to_words(m, nb)
-    return words, np.asarray(nbs, dtype=np.uint32)
-
-
-def digest_words_to_bytes(dw: np.ndarray) -> List[bytes]:
-    return [row.astype(">u4").tobytes() for row in np.asarray(dw)]
-
-
-def to_tensors(words: np.ndarray, nblocks: np.ndarray,
-               device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Host arrays -> the kernel's inputs on `device`: words as an int32
-    tensor with the same bits, nblocks as int32."""
-    w = torch.from_numpy(np.ascontiguousarray(words, np.uint32)
-                         .view(np.int32))
-    nb = torch.from_numpy(np.ascontiguousarray(nblocks).astype(np.int32))
-    return w.to(device), nb.to(device)
-
-
-def digests_from_tensor(out: torch.Tensor) -> np.ndarray:
-    """(B, 8) int32 digest tensor -> (B, 8) uint32 host array."""
-    return out.cpu().numpy().view(np.uint32)
 
 
 # ---------------------------------------------------------------------
@@ -180,55 +120,198 @@ def plain_sha256(words: torch.Tensor, nblocks: torch.Tensor
     return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32)
 
 
-def sha256_kernel(words: torch.Tensor, nblocks: torch.Tensor
+
+
+def blocks_needed(msg_len: int) -> int:
+    return (msg_len + 8) // 64 + 1
+
+
+def check_offsets(offsets: np.ndarray, nbytes: int) -> None:
+    """Raise ValueError unless offsets (B+1,) are non-negative,
+    non-decreasing and end at nbytes."""
+    if offsets.ndim != 1 or len(offsets) < 1:
+        raise ValueError("offsets must have B+1 >= 1 entries")
+    if int(offsets[-1]) != nbytes:
+        raise ValueError(f"offsets end at {int(offsets[-1])}, data holds "
+                         f"{nbytes} bytes")
+    if int(offsets[0]) < 0 or bool((offsets[1:] < offsets[:-1]).any()):
+        raise ValueError("offsets must be non-negative and non-decreasing")
+
+
+def pad_words(data: torch.Tensor, offsets: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's kernel inputs from raw bytes, with tensor ops:
+    every message FIPS 180-4 padded at its own block count and
+    zero-filled to the batch's largest -> (words (B, nb, 16) int32 with
+    the bits of big-endian words, nblocks (B,) int32)."""
+    dev = data.device
+    starts = offsets[:-1].to(torch.int64)
+    lens = offsets[1:].to(torch.int64) - starts
+    b = lens.numel()
+    nblocks = (lens + 8) // 64 + 1
+    nb = int(nblocks.max()) if b else 0
+    pos = torch.arange(nb * 64, device=dev)
+    inside = pos < lens[:, None]
+    byte = torch.zeros((b, nb * 64), dtype=torch.int64, device=dev)
+    if data.numel():
+        idx = (starts[:, None] + pos).clamp(max=data.numel() - 1)
+        byte = torch.where(inside, data[idx].to(torch.int64), byte)
+    byte = torch.where(pos == lens[:, None], 0x80, byte)
+    k = pos - (nblocks[:, None] * 64 - 8)          # byte of the bit length
+    in_len = (k >= 0) & (k < 8)
+    len_byte = ((lens[:, None] * 8) >> (8 * (7 - k.clamp(0, 7)))) & 0xFF
+    byte = torch.where(in_len, len_byte, byte)
+    q = byte.reshape(b, nb * 16, 4)
+    words = (q[..., 0] << 24) | (q[..., 1] << 16) | (q[..., 2] << 8) | q[..., 3]
+    words = torch.where(words >= 2**31, words - 2**32, words)
+    return words.to(torch.int32).reshape(b, nb, 16), nblocks.to(torch.int32)
+
+
+def digest_bytes(digest_words: torch.Tensor) -> torch.Tensor:
+    """(B, 8) int32 digest words -> (B, 32) uint8 big-endian digests."""
+    w = digest_words.to(torch.int64) & _M32
+    return torch.stack([(w >> s) & 0xFF for s in (24, 16, 8, 0)],
+                       dim=-1).reshape(-1, 32).to(torch.uint8)
+
+
+def plain_sha256_raw(data: torch.Tensor, offsets: torch.Tensor
+                     ) -> torch.Tensor:
+    """The plain version of the kernel's contract: data uint8 (N,),
+    offsets int64 (B+1,) -> (B, 32) uint8 digests."""
+    check_offsets(offsets.cpu().numpy(), data.numel())
+    if offsets.numel() == 1:
+        return torch.empty((0, 32), dtype=torch.uint8, device=data.device)
+    return digest_bytes(plain_sha256(*pad_words(data, offsets)))
+
+
+def sha256_kernel(data: torch.Tensor, offsets: torch.Tensor,
+                  host_offsets: Optional[np.ndarray] = None
                   ) -> torch.Tensor:
     """Route by device: CUDA tensors launch the Hopper kernel (which
     raises if it cannot), CPU tensors run the plain version."""
-    dev = words.device
+    dev = data.device
     if dev.type == "cuda":
         from tpubft_torch.ops import sha256_cuda
-        return sha256_cuda.sha256(words, nblocks)
+        return sha256_cuda.sha256_raw(data, offsets, host_offsets)
     if dev.type == "cpu":
-        return plain_sha256(words, nblocks)
+        return plain_sha256_raw(data, offsets)
     raise ValueError(f"sha256_kernel: no kernel for device {dev}")
 
 
 # ---------------------------------------------------------------------
-# batch entry points
+# the host half
 # ---------------------------------------------------------------------
 
-def _launch(words: np.ndarray, nblocks: np.ndarray, n: int,
-            device: torch.device) -> List[bytes]:
+# copies between host and card made by this module
+COPIES: Dict[str, int] = {"h2d": 0, "h2d_bytes": 0, "d2h": 0,
+                          "d2h_bytes": 0}
+
+
+class _Pinned:
+    """A pinned host buffer reused across calls and grown as needed. Used
+    only by `_roundtrip`, which synchronises before it returns, under the
+    device gate."""
+
+    def __init__(self) -> None:
+        self._buf: Optional[torch.Tensor] = None
+
+    def take(self, nbytes: int) -> torch.Tensor:
+        if self._buf is None or self._buf.numel() < nbytes:
+            size = max(nbytes, 1 << 16,
+                       0 if self._buf is None else 2 * self._buf.numel())
+            self._buf = torch.empty(size, dtype=torch.uint8,
+                                    pin_memory=True)
+        return self._buf[:nbytes]
+
+
+_h2d = _Pinned()
+_d2h = _Pinned()
+
+
+def pack(messages: Sequence[bytes]) -> Tuple[bytes, np.ndarray]:
+    """The batch as the kernel takes it: the messages joined, and their
+    boundaries (B+1,) int64 by a cumulative sum of their lengths."""
+    offsets = np.zeros(len(messages) + 1, dtype=np.int64)
+    np.cumsum(np.fromiter(map(len, messages), np.int64, len(messages)),
+              out=offsets[1:])
+    return b"".join(messages), offsets
+
+
+def to_device(blob: bytes, offsets: np.ndarray, device: torch.device
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(data, offsets) tensors on `device` for the kernel's own contract,
+    offsets and bytes sent in one copy."""
+    head = offsets.nbytes
+    host = np.empty(head + len(blob), dtype=np.uint8)
+    host[:head] = offsets.view(np.uint8)
+    host[head:] = np.frombuffer(blob, np.uint8)
+    buf = torch.from_numpy(host).to(device)
+    if device.type == "cuda":
+        COPIES["h2d"] += 1
+        COPIES["h2d_bytes"] += host.size
+    return buf[head:], buf[:head].view(torch.int64)
+
+
+def from_device(out: torch.Tensor) -> bytes:
+    """The (B, 32) digests as one bytes object, in one copy."""
+    if out.device.type == "cuda":
+        COPIES["d2h"] += 1
+        COPIES["d2h_bytes"] += out.numel()
+    return out.cpu().numpy().tobytes()
+
+
+def _roundtrip(blob: bytes, offsets: np.ndarray, dev: torch.device
+               ) -> bytes:
+    """The batch staged in pinned memory and hashed on the card in one C
+    call: one copy each way and one synchronisation."""
+    from tpubft_torch.ops import sha256_cuda
+    head = offsets.nbytes
+    stage = _h2d.take(head + len(blob))
+    host = stage.numpy()
+    host[:head] = offsets.view(np.uint8)
+    host[head:] = np.frombuffer(blob, np.uint8)
+    b = len(offsets) - 1
+    out = _d2h.take(32 * b)
+    sha256_cuda.sha256_roundtrip(stage, head, out, b, dev)
+    COPIES["h2d"] += 1
+    COPIES["h2d_bytes"] += stage.numel()
+    COPIES["d2h"] += 1
+    COPIES["d2h_bytes"] += out.numel()
+    return out.numpy().tobytes()
+
+
+def _hash(messages: Sequence[bytes], device: Optional[torch.device]
+          ) -> List[bytes]:
     from tpubft_torch.ops.dispatch import device_section
-    with device_section("sha256", batch=words.shape[0]):
-        out = sha256_kernel(*to_tensors(words, nblocks, device))
-        return digest_words_to_bytes(digests_from_tensor(out))[:n]
+    dev = _device.resolve(device)
+    blob, offsets = pack(messages)
+    # the staging buffers are used under the device gate, which
+    # serialises the calls that fill and drain them
+    with device_section("sha256", batch=len(messages)):
+        if dev.type == "cuda":
+            raw = _roundtrip(blob, offsets, dev)
+        else:
+            raw = from_device(sha256_kernel(*to_device(blob, offsets, dev)))
+    return [raw[i:i + 32] for i in range(0, len(raw), 32)]
 
 
 def sha256_batch(messages: Sequence[bytes],
                  device: Optional[torch.device] = None) -> List[bytes]:
-    """Hash a batch of same-block-count messages in one device call on
-    `device` (default: the card). The batch is padded to the next power
-    of two with copies of the first message."""
+    """Hash a batch of messages that all need the same number of blocks
+    (the reference's contract; ValueError otherwise) in one device call
+    on `device` (default: the card)."""
     if not messages:
         return []
-    n = len(messages)
-    m = 1 << (n - 1).bit_length()
-    words = prepare(list(messages) + [messages[0]] * (m - n))
-    nblocks = np.full(m, words.shape[1], dtype=np.uint32)
-    return _launch(words, nblocks, n, _device.resolve(device))
+    nbs = {blocks_needed(len(m)) for m in messages}
+    if len(nbs) != 1:
+        raise ValueError("mixed block counts in one batch")
+    return _hash(messages, device)
 
 
 def sha256_batch_mixed(messages: Sequence[bytes],
                        device: Optional[torch.device] = None
                        ) -> List[bytes]:
-    """Hash a batch of messages of any sizes in one device call.
-    Same-block-count batches take the uniform path."""
+    """Hash a batch of messages of any sizes in one device call."""
     if not messages:
         return []
-    n = len(messages)
-    if len({blocks_needed(len(m)) for m in messages}) == 1:
-        return sha256_batch(messages, device)
-    m = 1 << (n - 1).bit_length()
-    words, nblocks = prepare_mixed(list(messages) + [messages[0]] * (m - n))
-    return _launch(words, nblocks, n, _device.resolve(device))
+    return _hash(messages, device)
