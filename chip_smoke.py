@@ -21,7 +21,14 @@ line each; any failure exits non-zero:
            per call and by device time (a CUDA graph of the calls replayed
            under CUDA events), beside the plain version's time;
            bringup_copy and torch.add also by the profiler's kernel time,
-           and at 2^20 lanes, where the bytes bound them;
+           and at 2^20 lanes, where the bytes bound them; fe_inv
+           (csrc/fe_inv.cu) also with the lanes an element its launch ran
+           (four at 1024 by ops/bringup_cuda.lanes_for, as the launcher
+           reports them), both designs' clock64 cycles a step
+           (tools/fe_inv_probe.py) and the chain floor at the launched
+           design's cycles, and at 2^17 elements (one lane an element),
+           where its throughput bound applies, against Python ints on a
+           strided sample and its plain version on a 4096-element slice;
   kernel   the CUDA verify kernel against the plain PyTorch verify on the
            card, raw, and against the host scalar verdicts, on the
            strict-verify corpus at B = 1, 3, 33, 100, 192 and 1024 (edges
@@ -88,6 +95,9 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+if os.path.isdir(os.path.join(HERE, "tpubft_torch")):
+    sys.path.insert(0, HERE)
+    from tpubft_torch.tools.timing import cuda_ms, graph_ms
 
 # SM count and INT32 multiply-add lanes per SM per clock of an H100 SXM
 # (NVIDIA Hopper architecture white paper); HBM rate from the data sheet
@@ -110,52 +120,6 @@ def nvidia_smi(fields: str) -> str:
         ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0].strip()
-
-
-def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
-    """Mean time of fn() over `iters` back-to-back calls, by CUDA events.
-    For a kernel shorter than its call this is the host's enqueue time per
-    call, not the kernel's (see graph_ms)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_ms(fn, launches: int, replays: int = 5) -> float:
-    """Device time per call of fn(): `launches` calls captured into one
-    CUDA graph, the graph replayed under CUDA events, so the host's enqueue
-    time is out of the measurement (each call's kernels and the gap
-    between graph nodes remain)."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (replays * launches)
 
 
 def profiler_kernel_ms(fn, iters: int = 20):
@@ -228,7 +192,8 @@ def build_all() -> dict:
 
     from tpubft_torch.ops import bringup_cuda, ed25519_cuda, sha256_cuda
     libs = {"ed25519_verify": ed25519_cuda.library,
-            "sha256": sha256_cuda.library, "bringup": bringup_cuda.library}
+            "sha256": sha256_cuda.library, "bringup": bringup_cuda.library,
+            "fe_inv": bringup_cuda.fe_inv_library}
     seconds, errors = {}, []
 
     def build(name, fn):
@@ -280,6 +245,7 @@ def phase_ladder(torch, dev, sm_clock_mhz: float) -> dict:
     reset_all_launches()
     rungs = bringup.run_ladder(dev)
     launches = all_launches()
+    inv_lanes = launched_lanes(bringup_cuda.FE_INV_LANES)
     rows = []
     for r in rungs:
         row = dict(r.report)
@@ -303,6 +269,8 @@ def phase_ladder(torch, dev, sm_clock_mhz: float) -> dict:
         else:
             row.update(work_bound_ms(*bringup_cuda.work(name, row["lanes"]),
                                      sm_clock_mhz))
+        if name == "fe_inv":
+            row.update(fe_inv_yardsticks(dev, row, inv_lanes, sm_clock_mhz))
         rows.append(row)
     # the profiler's kernel time of the copy and torch.add, once, after
     # every other timing: it splits the graph time into kernel and node
@@ -310,13 +278,28 @@ def phase_ladder(torch, dev, sm_clock_mhz: float) -> dict:
     row["kernel_ms"] = profiler_kernel_ms(r.run)
     row["library_kernel_ms"] = profiler_kernel_ms(r.plain)
     out = {"phase": "ladder", "lanes": bringup.TILE, "rungs": rows,
-           "copy_large": copy_large_row(torch, dev, sm_clock_mhz)}
+           "copy_large": copy_large_row(torch, dev, sm_clock_mhz),
+           "fe_inv_large": fe_inv_large_row(torch, dev, sm_clock_mhz)}
     emit(out)
     if len(rungs) != len(bringup.RUNGS) or not all(r.ok for r in rungs):
         raise AssertionError(f"ladder rung failed: {rows[-1]}")
     if not out["copy_large"]["equal_plain"]:
         raise AssertionError("bringup_copy at 2^20 lanes differs from its "
                              "plain version")
+    big = out["fe_inv_large"]
+    if big["mismatches_vs_int"] or big["mismatches_vs_plain"]:
+        raise AssertionError(f"fe_inv at 2^17 elements differs: {big}")
+    probes = [p for r in rows if r["kernel"] == "fe_inv"
+              for p in r["probes"].values()]
+    if any(p["mismatches_vs_int"] for p in probes):
+        raise AssertionError(f"fe_inv probe differs: {probes}")
+    # the lanes each side's launch ran, as the launcher reported them
+    if {inv_lanes, big["lanes_per_element"]} != {1, 4}:
+        raise AssertionError(
+            f"fe_inv launched {inv_lanes} lanes an element at "
+            f"{bringup.TILE} elements and {big['lanes_per_element']} at "
+            f"{big['lanes']}: the ladder did not drive both sides of its "
+            "lanes rule")
     missing = [r["kernel"] for r in rows if r["launches"] < 1]
     if missing:
         raise AssertionError(f"ladder ran without launching {missing}")
@@ -341,6 +324,69 @@ def copy_large_row(torch, dev, sm_clock_mhz: float) -> dict:
     row.update(work_bound_ms(*bu.work("bringup_copy", lanes), sm_clock_mhz))
     row["gb_per_s"] = row["bytes"] / row["ms"] / 1e6
     torch.cuda.empty_cache()
+    return row
+
+
+def launched_lanes(counts) -> int:
+    """The lanes an element (4 or 1) of the fe_inv launches counted in
+    `counts` (bringup_cuda.FE_INV_LANES, or a difference of two), or 0
+    where they ran neither design or both."""
+    used = [lanes for lanes, k in counts.items() if k]
+    return used[0] if len(used) == 1 else 0
+
+
+def fe_inv_yardsticks(dev, row, lanes: int, sm_clock_mhz: float) -> dict:
+    """The rung-3 row's yardsticks: the lanes an element its launch ran,
+    what those lanes execute beside what the function needs, the clock64
+    cycles a step of both designs at the rung's size (tools/fe_inv_probe;
+    measurement launches, after the ladder's counts were read), the chain
+    floor at the cycles of the design the launch ran, and the bound's
+    share of the device time."""
+    from tpubft_torch.ops import bringup_cuda as bu
+    from tpubft_torch.tools import fe_inv_probe
+    n = row["lanes"]
+    if lanes not in (1, 4):
+        raise AssertionError("the ladder's fe_inv launch ran no single "
+                             f"design: {dict(bu.FE_INV_LANES)}")
+    probes = {f"lanes_{k}": fe_inv_probe.probe(dev, n, k) for k in (4, 1)}
+    step = probes[f"lanes_{lanes}"]["step_cycles"]
+    return {"lanes_per_element": lanes,
+            "executed_ops": bu.executed_ops(n, lanes),
+            "step_cycles": step,
+            "chain_floor_ms": bu.chain_floor_ms(n, sm_clock_mhz, step),
+            "share_of_bound": row["bound_ms"] / row["ms"],
+            "probes": probes}
+
+
+def fe_inv_large_row(torch, dev, sm_clock_mhz: float) -> dict:
+    """fe_inv at 2^17 elements, where the card is full and its throughput
+    bound applies (one lane an element by lanes_for): the lanes the
+    launcher ran, device time by graph against the bound, checked against
+    Python ints on a strided sample and against the plain version on a
+    4096-element slice."""
+    from tpubft_torch.ops import bringup_cuda as bu
+    from tpubft_torch.tools import bringup, fe_inv_probe
+    n = 1 << 17
+    a_np = fe_inv_probe.elements(n, seed=11)
+    a = torch.from_numpy(a_np).to(dev)
+    before = dict(bu.FE_INV_LANES)
+    got = bu.fe_inv(a)
+    lanes = launched_lanes({k: bu.FE_INV_LANES[k] - before[k]
+                            for k in before})
+    part = a[:, :4096].contiguous()
+    row = {"lanes": n, "lanes_per_element": lanes,
+           "mismatches_vs_int": fe_inv_probe.sample_mismatches(
+               a_np, got.cpu().numpy(), samples=257),
+           "mismatches_vs_plain": bringup._lane_mismatches(
+               got[:, :4096].cpu().numpy(),
+               bringup._plain_inv(part).cpu().numpy())}
+    row["host_ms"] = cuda_ms(lambda: bu.fe_inv(a), 10)
+    row["ms"] = graph_ms(lambda: bu.fe_inv(a), 10)
+    row["plain_4096_ms"] = cuda_ms(lambda: bringup._plain_inv(part), 1)
+    row.update(work_bound_ms(*bu.work("fe_inv", n), sm_clock_mhz))
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    if lanes in (1, 4):
+        row["executed_ops"] = bu.executed_ops(n, lanes)
     return row
 
 
@@ -912,6 +958,17 @@ def phase_kernels(torch, dev, plane, kernel, ladder, ledger, digest,
                      "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "path": "ladder"})
+        if r["kernel"] == "fe_inv":
+            big = ladder["fe_inv_large"]
+            # the lanes its launch ran, and the cycles a step this run's
+            # probe read for that design, with the chain floor they set
+            rows[-1].update({
+                k: r[k] for k in ("lanes_per_element", "step_cycles",
+                                  "chain_floor_ms", "share_of_bound")})
+            rows[-1]["large"] = {k: big[k] for k in (
+                "lanes", "lanes_per_element", "ms", "host_ms", "bound_ms",
+                "share_of_bound", "mismatches_vs_int",
+                "mismatches_vs_plain")}
     rows.append(sha256_kernel_row(torch, dev, ledger, digest, sm_clock_mhz))
     out = {"kernels": rows}
     emit(out)
@@ -923,7 +980,7 @@ def phase_kernels(torch, dev, plane, kernel, ladder, ledger, digest,
 
 LADDER_SOURCES = {
     "fe_mul": "tpubft_torch/ops/csrc/ed25519_verify.cu",
-    "fe_inv": "tpubft_torch/ops/csrc/ed25519_verify.cu",
+    "fe_inv": "tpubft_torch/ops/csrc/fe_inv.cu",
     "bringup_copy": "tpubft_torch/ops/csrc/bringup.cu",
     "fe_carry": "tpubft_torch/ops/csrc/bringup.cu",
     "fe_table_gather": "tpubft_torch/ops/csrc/bringup.cu"}
@@ -995,7 +1052,6 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: no card")
-    sys.path.insert(0, HERE)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     info = phase_device(torch)

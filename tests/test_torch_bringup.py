@@ -105,8 +105,9 @@ def test_ladder_cli_without_a_card_exits_nonzero():
 
 @pytest.mark.parametrize("call", [
     lambda a: bu.bringup_copy(a), lambda a: bu.fe_carry(a),
-    lambda a: bu.fe_table_gather(a, a[:, 0].contiguous())],
-    ids=["bringup_copy", "fe_carry", "fe_table_gather"])
+    lambda a: bu.fe_table_gather(a, a[:, 0].contiguous()),
+    lambda a: bu.fe_inv(a)],
+    ids=["bringup_copy", "fe_carry", "fe_table_gather", "fe_inv"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     a = torch.zeros((F.NL, 8), dtype=torch.int32)
     before = dict(bu.LAUNCHES)
@@ -121,8 +122,36 @@ def test_work_counts_scale_with_lanes(kernel):
     ops1, bytes1 = bu.work(kernel, 1)
     ops2, bytes2 = bu.work(kernel, 1024)
     assert 0 < ops1 and 0 < bytes1
+    if kernel == "fe_inv":         # the chain, from bringup_cuda's counts
+        assert ops1 == bu.CHAIN_SQR * (2 * 55 + 9) \
+            + bu.CHAIN_MUL * (2 * 100 + 9)
     assert ops2 == 1024 * ops1
     assert bytes2 > 512 * bytes1
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+def test_fe_inv_lanes_rule(sms):
+    """Four lanes an element while 4n threads are one warp per SM
+    partition, one above."""
+    assert bu.lanes_for(1, sms) == 4
+    assert bu.lanes_for(32 * sms, sms) == 4
+    assert bu.lanes_for(32 * sms + 1, sms) == 1
+    assert bu.lanes_for(1 << 17, sms) == 1
+
+
+def test_fe_inv_yardsticks():
+    """The function's work is the chain's 254 squares and 11 multiplies
+    whatever the lanes; four lanes execute more, one lane about as much;
+    the chain floor is the 265 steps at the cycles a step given."""
+    assert (bu.CHAIN_SQR, bu.CHAIN_MUL, bu.CHAIN_STEPS) == (254, 11, 265)
+    need = bu.work("fe_inv", 1024)[0]
+    assert bu.executed_ops(1024, 4) > need
+    assert 0.9 * need < bu.executed_ops(1024, 1) < 1.2 * need
+    assert bu.chain_floor_ms(0, 1980.0, 368.0) == 0.0
+    assert bu.chain_floor_ms(1024, 1980.0, 368.0) == pytest.approx(
+        265 * 368.0 / 1.98e6)
+    with pytest.raises(ValueError):
+        bu.executed_ops(1024, 2)
 
 
 def test_work_refuses_unknown_kernel():

@@ -1,6 +1,6 @@
 """The CUDA kernels of the port on a card: the verify kernel against the
-plain PyTorch version and the host scalar engine, the field test kernels
-against Python ints, the SHA-256 kernel against hashlib and its plain
+plain PyTorch version and the host scalar engine, the field kernels
+(fe_mul, and fe_inv in both of its designs) against Python ints, the SHA-256 kernel against hashlib and its plain
 version, and the bring-up kernels against theirs. Marked `cuda`; each test
 skips where no card is present (run on the card:
 python -m pytest --noconftest tests/test_torch_cuda.py).
@@ -75,11 +75,51 @@ def test_field_kernels_match_python_ints(card):
     ta = torch.from_numpy(np.stack([F.int_to_limbs(v) for v in va], 1))
     tb = torch.from_numpy(np.stack([F.int_to_limbs(v) for v in vb], 1))
     mul = kc.fe_mul(ta.to(card), tb.to(card)).cpu().numpy()
-    inv = kc.fe_inv(ta.to(card)).cpu().numpy()
+    inv = bu.fe_inv(ta.to(card)).cpu().numpy()
     for i in range(512):
         assert np.array_equal(mul[:, i], F.int_to_limbs(va[i] * vb[i]))
         assert np.array_equal(inv[:, i],
                               F.int_to_limbs(pow(va[i], F.P - 2, F.P)))
+
+
+@pytest.mark.parametrize("lanes", [1, 4])
+@pytest.mark.parametrize("n", [1, 3, 33, 1024, 1 << 17])
+def test_fe_inv_ragged_and_edges(card, n, lanes):
+    """Both designs at ragged sizes (a partial group, warp and block), the
+    edge cases 0, 1, 2, 19, p-1, (p-1)/2 first: every lane against
+    Python ints up to 1024 (a strided sample of 257 above), and against
+    the plain version on the first 1024."""
+    from tpubft_torch.tools import fe_inv_probe
+    a_np = fe_inv_probe.elements(n, seed=n)
+    a = torch.from_numpy(a_np).to(card)
+    before = bu.LAUNCHES["fe_inv"], bu.FE_INV_LANES[lanes]
+    got = bu._fe_inv(a, lanes)
+    assert (bu.LAUNCHES["fe_inv"], bu.FE_INV_LANES[lanes]) == (
+        before[0] + 1, before[1] + 1)
+    got_np = got.cpu().numpy()
+    assert fe_inv_probe.sample_mismatches(
+        a_np, got_np, samples=n if n <= 1024 else 257) == 0
+    m = min(n, 1024)
+    plain = bringup._plain_inv(a[:, :m].contiguous()).cpu().numpy()
+    assert np.array_equal(got_np[:, :m], plain)
+
+
+def test_fe_inv_lanes_rule_on_this_card(card):
+    """The public wrapper runs four lanes an element up to 32 x SMs and one
+    above, as the launcher reports it, and both designs agree."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    a = torch.from_numpy(bringup._rand_elems(np.random.default_rng(1),
+                                             32 * sms + 1)).to(card)
+    small, large = a[:, :32 * sms].contiguous(), a
+    assert bu.lanes_for(small.shape[1], sms) == 4
+    assert bu.lanes_for(large.shape[1], sms) == 1
+    bu.reset_launches()
+    got_small = bu.fe_inv(small)
+    assert bu.FE_INV_LANES == {4: 1, 1: 0}
+    got_large = bu.fe_inv(large)
+    assert bu.FE_INV_LANES == {4: 1, 1: 1}
+    assert torch.equal(got_small, bu._fe_inv(small, 1))
+    assert torch.equal(got_large[:, :32 * sms], bu._fe_inv(small, 4))
 
 
 def _sha_messages(batch, mixed):
@@ -163,6 +203,7 @@ def test_wrappers_refuse_bad_cuda_tensors(card, case):
                 "shape": data.view(2, 128),
                 "contiguity": data[::2]}[case]
     for call in (lambda: bu.bringup_copy(bad), lambda: bu.fe_carry(bad),
+                 lambda: bu.fe_inv(bad),
                  lambda: bu.fe_table_gather(bad, good[:, 0].contiguous()),
                  lambda: sha256_cuda.sha256_raw(bad_data, offsets)):
         with pytest.raises(ValueError):

@@ -12,6 +12,7 @@ instead leaves them alone and makes torch report no CUDA device, with no
 request for the CPU, so the port's own device resolution raises.
 """
 import hashlib
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -170,3 +171,50 @@ def test_no_card_is_a_runtime_error_that_names_the_way_out(monkeypatch):
     with pytest.raises(device.NoDevice):
         device.resolve("cuda")
     assert device.resolve("cpu") == torch.device("cpu")
+
+
+# ---- a ladder wrapper: bringup_cuda.fe_inv has no fallback ----
+
+class _FailingLaunch:
+    """A kernel library whose launch reports a CUDA error."""
+
+    @staticmethod
+    def fe_inv_launch(*_args):
+        return 700
+
+    @staticmethod
+    def fe_inv_error_string(_err):
+        return b"an illegal memory access was encountered"
+
+
+@pytest.mark.parametrize("fault", ["cpu_tensor", "build_error",
+                                   "launch_error"])
+def test_fe_inv_wrapper_raises_and_does_not_count(monkeypatch, fault):
+    """A CPU tensor is refused (the ladder routes it to the plain version),
+    a failed build raises BuildError and a failed launch RuntimeError; none
+    is answered by the plain version or counted as a launch. The build and
+    launch faults get past the device check and the card's SM count by
+    standing in for them, as no card is present here."""
+    from tpubft_torch.ops import bringup_cuda as bu
+    a = torch.zeros((bu.NL, 8), dtype=torch.int32)
+    if fault != "cpu_tensor":
+        monkeypatch.setattr(bu, "_lanes", lambda t: t.shape[1])
+        monkeypatch.setattr(bu, "_stream", lambda _dev: 0)
+        monkeypatch.setattr(torch.cuda, "get_device_properties",
+                            lambda _dev: SimpleNamespace(
+                                multi_processor_count=132))
+    if fault == "build_error":
+        def no_nvcc(*_a, **_k):
+            raise _build.BuildError("nvcc failed building fe_inv")
+        bu.fe_inv_library.cache_clear()
+        monkeypatch.setattr(bu._build, "load", no_nvcc)
+    if fault == "launch_error":
+        monkeypatch.setattr(bu, "fe_inv_library", lambda: _FailingLaunch)
+    expect = {"cpu_tensor": ValueError, "build_error": _build.BuildError,
+              "launch_error": RuntimeError}[fault]
+    before = dict(bu.LAUNCHES), dict(bu.FE_INV_LANES)
+    with pytest.raises(expect):
+        bu.fe_inv(a)
+    assert (bu.LAUNCHES, bu.FE_INV_LANES) == before
+    if fault == "build_error":
+        bu.fe_inv_library.cache_clear()     # drop nothing cached by the fault

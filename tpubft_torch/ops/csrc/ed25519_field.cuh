@@ -24,10 +24,10 @@
 // Carter and Dawson, "Twisted Edwards Curves Revisited" (ASIACRYPT 2008).
 // Limbs move between the steps by shuffles within the group (ED_SHFL).
 //
-// Everything here is __device__ code for ed25519_verify.cu and bringup.cu;
-// ED_FN also lets a host C++ compiler build the same functions for a check
-// of the arithmetic away from the card (a host build provides ed_shfl and
-// ed_shfl_xor, running the four lanes of a group in lock-step).
+// Everything here is __device__ code for ed25519_verify.cu, bringup.cu and
+// fe_inv.cu; ED_FN also lets a host C++ compiler build the same functions
+// for a check of the arithmetic away from the card (a host build provides
+// ed_shfl and ed_shfl_xor, running the four lanes of a group in lock-step).
 #pragma once
 #include <stdint.h>
 
@@ -186,8 +186,9 @@ ED_FN Fe fe_pow2k(Fe x, int k) {
   return x;
 }
 
-// x^(2^250 - 1) and x^11: the shared core of the inversion and square-root
-// chains (the standard curve25519 addition chain, as in the reference).
+// x^(2^250 - 1) and x^11: the core of the square-root chain (the standard
+// curve25519 addition chain, as in the reference; fe_inv.cu runs the
+// inversion's own copy of it on its four-lane field steps).
 ED_FN void fe_chain_250(const Fe& x, Fe* t250, Fe* z11) {
   Fe z2 = fe_sq(x);
   Fe z9 = fe_mul(fe_pow2k(z2, 2), x);
@@ -200,13 +201,6 @@ ED_FN void fe_chain_250(const Fe& x, Fe* t250, Fe* z11) {
   Fe z_100 = fe_mul(fe_pow2k(z_50, 50), z_50);
   Fe z_200 = fe_mul(fe_pow2k(z_100, 100), z_100);
   *t250 = fe_mul(fe_pow2k(z_200, 50), z_50);
-}
-
-// x^(p-2); inv(0) = 0
-ED_FN Fe fe_inv(const Fe& x) {
-  Fe t250, z11;
-  fe_chain_250(x, &t250, &z11);
-  return fe_mul(fe_pow2k(t250, 5), z11);
 }
 
 // x^((p-5)/8)

@@ -71,7 +71,7 @@
 #include "ed25519_field.cuh"
 
 #define ED_THREADS 64                   // verify: 16 signatures a block
-#define FE_THREADS 128                  // the field test kernels
+#define FE_THREADS 128                  // the field test kernel
 #define ED_BTAB_WORDS (10 * 16 * 4)
 
 // the base niels table, btab[limb][digit*4 + lane]: lane c's coordinate of
@@ -100,8 +100,9 @@ ed25519_verify_kernel(const int32_t* __restrict__ s_win,
   if (c == 0 && g < batch) out[g] = ok ? 1 : 0;
 }
 
-// Field test kernels (the chip_smoke `ladder` phase): the verify kernel's own
-// fe_mul / fe_inv on (24, n) tight canonical limbs in, canonical limbs out.
+// Field test kernel (the chip_smoke `ladder` phase, rung 2): the verify
+// kernel's own fe_mul on (24, n) tight canonical limbs in, canonical limbs
+// out. Rung 3, the inversion, has a kernel of its own (fe_inv.cu).
 extern "C" __global__ void __launch_bounds__(FE_THREADS)
 ed25519_fe_mul_kernel(const int32_t* __restrict__ a,
                       const int32_t* __restrict__ b,
@@ -111,15 +112,6 @@ ed25519_fe_mul_kernel(const int32_t* __restrict__ a,
   const Fe x = fe_reduce(fe_from_w24(a + i, n));
   const Fe y = fe_reduce(fe_from_w24(b + i, n));
   fe_to_w24(fe_canon(fe_mul(x, y)), out + i, n);
-}
-
-extern "C" __global__ void __launch_bounds__(FE_THREADS)
-ed25519_fe_inv_kernel(const int32_t* __restrict__ a,
-                      int32_t* __restrict__ out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Fe x = fe_reduce(fe_from_w24(a + i, n));
-  fe_to_w24(fe_canon(fe_inv(x)), out + i, n);
 }
 
 static unsigned grid_for(long long threads, int per_block) {
@@ -167,14 +159,6 @@ extern "C" int ed25519_fe_mul_launch(const int32_t* a, const int32_t* b,
   if (n <= 0) return 0;
   ed25519_fe_mul_kernel<<<grid_for(n, FE_THREADS), FE_THREADS, 0,
                           (cudaStream_t)stream>>>(a, b, out, n);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int ed25519_fe_inv_launch(const int32_t* a, int32_t* out, int n,
-                                     void* stream) {
-  if (n <= 0) return 0;
-  ed25519_fe_inv_kernel<<<grid_for(n, FE_THREADS), FE_THREADS, 0,
-                          (cudaStream_t)stream>>>(a, out, n);
   return (int)cudaGetLastError();
 }
 

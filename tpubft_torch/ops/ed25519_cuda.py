@@ -12,9 +12,10 @@ build or launch failure raises, and the plain PyTorch version
 (ops/ed25519.plain_verify_kernel) is reached only for CPU tensors, by
 ops/ed25519.verify_kernel.
 
-`fe_mul` and `fe_inv` launch test kernels built from the verify kernel's
-own field functions; chip_smoke's `ladder` phase checks them against
-Python-int arithmetic mod p.
+`fe_mul` launches a test kernel built from the verify kernel's own field
+multiply (ladder rung 2); chip_smoke's `ladder` phase checks it against
+Python-int arithmetic mod p. The rung-3 inversion has a kernel of its own
+(csrc/fe_inv.cu, ops/bringup_cuda.fe_inv).
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from tpubft_torch.ops import f25519 as F
 NL = F.NL
 WINDOWS = 64
 
-LAUNCHES: Dict[str, int] = {"ed25519_verify": 0, "fe_mul": 0, "fe_inv": 0}
+LAUNCHES: Dict[str, int] = {"ed25519_verify": 0, "fe_mul": 0}
 
 SOURCES = ("ed25519_verify.cu",)
 HEADERS = ("ed25519_field.cuh",)
@@ -74,8 +75,6 @@ def library() -> ctypes.CDLL:
     lib.ed25519_verify_launch.restype = _I
     lib.ed25519_fe_mul_launch.argtypes = [_P, _P, _P, _I, _P]
     lib.ed25519_fe_mul_launch.restype = _I
-    lib.ed25519_fe_inv_launch.argtypes = [_P, _P, _I, _P]
-    lib.ed25519_fe_inv_launch.restype = _I
     lib.ed25519_error_string.argtypes = [_I]
     lib.ed25519_error_string.restype = ctypes.c_char_p
     return lib
@@ -161,19 +160,6 @@ def fe_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                                           _stream(a.device)),
            "fe_mul launch")
     LAUNCHES["fe_mul"] += 1
-    return out
-
-
-def fe_inv(a: torch.Tensor) -> torch.Tensor:
-    """(24, n) tight canonical limbs -> canonical limbs of a^(p-2)."""
-    n = a.shape[1] if a.dim() == 2 else -1
-    _require(a, "a", (NL, n), a.device)
-    lib = _ready(a.device)
-    out = torch.empty_like(a)
-    _check(lib, lib.ed25519_fe_inv_launch(a.data_ptr(), out.data_ptr(), n,
-                                          _stream(a.device)),
-           "fe_inv launch")
-    LAUNCHES["fe_inv"] += 1
     return out
 
 

@@ -15,7 +15,8 @@ PyTorch version:
   1  carry          fe_carry: the 24-limb normalize on 7x loose limbs,
                     which must equal f25519.normalize limb for limb
   2  mul            fe_mul: field multiply
-  3  inv            fe_inv: the 254-square inversion chain
+  3  inv            fe_inv: the 254-square inversion chain (csrc/fe_inv.cu,
+                    four lanes an element at the ladder's 1024)
   4  table          fe_table_gather: a..a^4 table in shared memory,
                     selected per lane, times the base niels column 0
   5  full-verify    ed25519_verify on the strict-verify corpus, against
@@ -86,7 +87,7 @@ def _routed(kernel, plain):
 _copy = _routed(bu.bringup_copy, bu.plain_copy)
 _carry = _routed(bu.fe_carry, bu.plain_carry)
 _fe_mul = _routed(kc.fe_mul, _plain_mul)
-_fe_inv = _routed(kc.fe_inv, _plain_inv)
+_fe_inv = _routed(bu.fe_inv, _plain_inv)
 _table = _routed(bu.fe_table_gather, bu.plain_table_gather)
 
 

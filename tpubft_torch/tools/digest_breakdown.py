@@ -39,6 +39,8 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from tpubft_torch.tools.timing import graph_ms
+
 SWEEP_BLOCKS = (16, 32, 64, 128, 256)
 # about a millisecond of the card spinning (torch.cuda._sleep), longer
 # than the host takes to issue a round trip's three steps
@@ -62,37 +64,13 @@ def spread(values: Sequence[float]) -> Dict[str, float]:
             "max": max(values), "n": len(values)}
 
 
-def _graph_ms(fn, launches: int = 20, replays: int = 5) -> float:
-    """Device time per call of fn(): `launches` calls captured into one
-    CUDA graph, replayed under CUDA events."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (replays * launches)
-
-
 def kernel_graph_ms(raws: Sequence[bytes], dev: torch.device) -> float:
     """The SHA-256 kernel alone on these messages, by device time."""
     from tpubft_torch.ops import sha256 as sha
     from tpubft_torch.ops import sha256_cuda
     blob, offsets = sha.pack(raws)
     data, offs = sha.to_device(blob, offsets, dev)
-    return _graph_ms(lambda: sha256_cuda.sha256_raw(data, offs, offsets))
+    return graph_ms(lambda: sha256_cuda.sha256_raw(data, offs, offsets), 20)
 
 
 def steps(raws: Sequence[bytes], dev: torch.device) -> Dict[str, float]:
