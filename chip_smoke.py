@@ -46,6 +46,22 @@ line each; any failure exits non-zero:
            SigManager's and the multisig verifier's counters, and the
            breaker: no failure, one success per launch) and the device
            breaker is closed;
+  replica  config 1's own main path: a four-replica in-process cluster
+           (testing.InProcessCluster, the counter app) on the card at
+           BASELINE config 1's widths, 100 client principals and the
+           reference's batching defaults, crypto_backend "cuda"; the
+           durability pipeline and the autotuner are off (not ported,
+           ROADMAP A.3 and A.8). 100 clients send counter writes in a
+           closed loop, one outstanding each, until 3,000 have committed,
+           within 120 s. Every reply decodes and each client's replies
+           increase, the four counters equal the sum of the adds and
+           last_executed agrees, the verify kernel was launched on the
+           path (launches reset just before the load, read just after),
+           nothing degraded and the breaker saw no failure. Printed:
+           client commit latency p50/p90/p99, requests per second,
+           PrePrepares and requests per PrePrepare, verify launches and
+           signatures per launch, the certificate path's launches, and
+           the phase's wall time;
   ledger   config 1's categorized KVBC ledger at the kvbcbench block shape
            (800 blocks of 8 versioned keys and one Merkle-proven key) on a
            MemoryDB with use_device_hashing=True, against the same ledger
@@ -74,8 +90,9 @@ line each; any failure exits non-zero:
            messages (per call and by a CUDA graph) beside the host pack,
            hashlib over the same messages and the plain version at
            B=1024;
-  kernels  every kernel with its launches on its path (the plane, the
-           ladder, the state-transfer digests), its match against the plain
+  kernels  every kernel with its launches on its path (the plane and the
+           replica cluster, the ladder, the state-transfer digests; the
+           verify row splits them by path), its match against the plain
            version, its device time (`ms`, a CUDA graph) and host enqueue
            time (`host_ms`), its bound and the plain version's time;
            SHA-256 also with its chain floor, and matched against its plain
@@ -617,6 +634,202 @@ def phase_plane(torch, dev, num_pp: int = 8, slots: int = 64) -> dict:
     return out
 
 
+REPLICA_CONFIG = dict(
+    # BASELINE config 1's widths; the batching values are the reference's
+    # defaults, written out so the phase prints what it ran
+    threshold_scheme="adaptive", replica_sig_scheme="ed25519",
+    client_sig_scheme="ed25519", max_num_of_requests_in_batch=100,
+    batch_flush_period_ms=7, verify_batch_size=256,
+    verify_batch_flush_us=200, device_min_verify_batch=32,
+    work_window_size=300, crypto_backend="cuda",
+    # the planes the port does not carry yet (ROADMAP A.3, A.8)
+    durability_pipeline=False, autotune_enabled=False)
+
+
+def percentile(sorted_ms, q: float) -> float:
+    return sorted_ms[min(len(sorted_ms) - 1,
+                         int(round(q * (len(sorted_ms) - 1))))]
+
+
+def phase_replica(torch, dev, clients: int = 100, target: int = 3000,
+                  budget_s: float = 120.0) -> dict:
+    """Config 1's own entry points: a four-replica in-process cluster
+    (testing.InProcessCluster over the loopback bus) with the counter
+    app, driven by `clients` BftClients in a closed loop (one write
+    outstanding each) until `target` requests have committed. Every
+    reply is checked, the four replicas must agree, and the verify
+    kernel must have carried the path with nothing degraded."""
+    import threading
+
+    import numpy as np
+
+    from tpubft_torch.apps import counter
+    from tpubft_torch.crypto import cuda as crypto_cuda
+    from tpubft_torch.ops import ed25519_cuda as kc
+    from tpubft_torch.ops.dispatch import device_breaker
+    from tpubft_torch.testing import InProcessCluster
+    from tpubft_torch.utils import flight
+
+    cfg = dict(REPLICA_CONFIG)
+    # SigManager's batches (admission, PrePrepare requests) go through
+    # verify_batch_mixed; the launches outside it are the certificate
+    # path's (the multisig verifier). The count attributes launches only.
+    mixed = crypto_cuda.verify_batch_mixed
+    sig_calls = [0]
+
+    def counted_mixed(items):
+        sig_calls[0] += 1
+        return mixed(items)
+    crypto_cuda.verify_batch_mixed = counted_mixed
+    t_phase = time.monotonic()
+    try:
+        cluster = InProcessCluster(f=1, c=0, num_clients=clients,
+                                   seed=b"chip-smoke-replica",
+                                   cfg_overrides=cfg)
+    finally:
+        crypto_cuda.verify_batch_mixed = mixed
+    rep0 = cluster.replicas[0]
+    assert rep0.keys.threshold_scheme == "multisig-ed25519", \
+        rep0.keys.threshold_scheme
+    emit({"phase": "replica", "step": "config", "n": cluster.n, "f": 1,
+          "c": 0, "clients": clients, "target_requests": target,
+          "budget_s": budget_s,
+          "scheme": rep0.keys.threshold_scheme, "config": cfg,
+          "durability_pipeline": rep0.cfg.durability_pipeline,
+          "autotune_enabled": rep0.cfg.autotune_enabled,
+          "crypto_backend": rep0.crypto_backend})
+    rng = np.random.default_rng(3)
+    deltas = rng.integers(1, 10, size=(clients, 4 * target // clients + 64))
+    lock = threading.Lock()
+    committed = [0]
+    lat_ms, per_client, errors = [], {}, []
+    stop = threading.Event()
+
+    def drive(idx: int, client) -> None:
+        got = per_client[idx] = []
+        try:
+            for delta in deltas[idx]:
+                with lock:
+                    if committed[0] >= target:
+                        return
+                t0 = time.perf_counter()
+                raw = client.send_write(counter.encode_add(int(delta)),
+                                        timeout_ms=int(budget_s * 1000))
+                ms = (time.perf_counter() - t0) * 1e3
+                got.append((int(delta), counter.decode_reply(raw)))
+                with lock:
+                    lat_ms.append(ms)
+                    committed[0] += 1
+                if stop.is_set():
+                    return
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(f"client {idx}: {type(exc).__name__}: {exc}")
+
+    breaker = device_breaker()
+    try:
+        cluster.start()
+        bft_clients = [cluster.client(i) for i in range(clients)]
+        for c in bft_clients:
+            c.start()
+        breaker.reset()
+        br0 = breaker.snapshot()
+        flight.kernel_profiler().reset()
+        sig_calls[0] = 0
+        kc.reset_launches()
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=drive, args=(i, c), daemon=True)
+                   for i, c in enumerate(bft_clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(max(0.0, budget_s - (time.monotonic() - t0)))
+        load_s = time.monotonic() - t0
+        stop.set()
+        launches = kc.LAUNCHES["ed25519_verify"]
+        sig_launches = sig_calls[0]
+        profile = flight.kernel_profiler().snapshot().get("ed25519") or {}
+        br1 = breaker.snapshot()
+        # every committed write executes on all four replicas
+        done = sum(len(v) for v in per_client.values())
+        settle = time.monotonic() + 30
+        reps = list(cluster.replicas.values())
+        while time.monotonic() < settle and not (
+                len({r.last_executed for r in reps}) == 1
+                and all(h.value == cluster.handlers[0].value
+                        for h in cluster.handlers.values())):
+            time.sleep(0.05)
+        adds = sum(d for v in per_client.values() for d, _ in v)
+        monotone = all(all(b[1] > a[1] for a, b in zip(v, v[1:]))
+                       for v in per_client.values())
+        values = [cluster.handlers[r].value for r in range(cluster.n)]
+        last_exec = [r.last_executed for r in reps]
+        primary = cluster.metric(0, "counters", "sent_preprepares")
+        executed = cluster.metric(0, "counters", "executed_requests")
+        sig_degraded = [r.sig.degraded_verifies.value for r in reps]
+        sig_fallbacks = [r.sig.scalar_fallbacks.value for r in reps]
+        multisig_degraded = [getattr(v, "degraded", 0) for r in reps for v in (
+            r.slow_verifier, r.thr_verifier, r.opt_verifier)]
+        slow_commits = sum(cluster.metric(r, "counters", "slow_path_commits")
+                           for r in range(cluster.n))
+        fast_commits = sum(cluster.metric(r, "counters", "fast_path_commits")
+                           for r in range(cluster.n))
+    finally:
+        stop.set()
+        cluster.stop()
+    lat = sorted(lat_ms)
+    out = {"phase": "replica", "committed": done,
+           "load_s": load_s, "requests_per_s": done / load_s,
+           "commit_latency_ms": {
+               "p50": percentile(lat, 0.50), "p90": percentile(lat, 0.90),
+               "p99": percentile(lat, 0.99), "max": lat[-1]}
+           if lat else None,
+           "preprepares": primary, "executed_requests": executed,
+           "requests_per_preprepare": executed / primary if primary else 0,
+           "slow_path_commits": slow_commits,
+           "fast_path_commits": fast_commits,
+           "verify_launches": launches,
+           "sigmanager_launches": sig_launches,
+           "certificate_launches": launches - sig_launches,
+           "signatures_per_launch": profile.get("batch_avg"),
+           "profile": profile,
+           "counter_values": values, "sum_of_adds": adds,
+           "last_executed": last_exec, "replies_increase": monotone,
+           "sig_degraded": sig_degraded,
+           # batches under device_min_verify_batch verify on the host by
+           # design (the reference's rule); runtime fallbacks are `degraded`
+           "host_small_batch_verifies": sig_fallbacks,
+           "multisig_degraded": multisig_degraded,
+           "breaker": br1["state"],
+           "breaker_failures": br1["failures"] - br0["failures"],
+           "breaker_fast_fails": br1["fast_fails"] - br0["fast_fails"],
+           "errors": errors[:5],
+           "wall_s": time.monotonic() - t_phase}
+    emit(out)
+    problems = []
+    if errors:
+        problems.append(f"{len(errors)} clients failed: {errors[:3]}")
+    if done < target:
+        problems.append(f"{done} of {target} requests committed in "
+                        f"{budget_s} s")
+    if not monotone:
+        problems.append("a client's replies did not increase")
+    if values != [adds] * cluster.n:
+        problems.append(f"counters {values} != the sum of adds {adds}")
+    if len(set(last_exec)) != 1:
+        problems.append(f"last_executed differs: {last_exec}")
+    if launches < 1:
+        problems.append("the verify kernel was not launched on the path")
+    if any(sig_degraded) or any(multisig_degraded):
+        problems.append("a verify degraded or fell back to the host")
+    if out["breaker_failures"] or out["breaker_fast_fails"] \
+            or out["breaker"] != "closed":
+        problems.append(f"device breaker {out['breaker']}, "
+                        f"{out['breaker_failures']} failures")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
 def phase_ledger(torch, dev, blocks: int = 800, chunk: int = 64) -> dict:
     """Config 1's categorized ledger at the kvbcbench block shape, device
     hashing against hashlib: ingested in add_blocks chunks of 64 as the
@@ -913,8 +1126,8 @@ def sha256_rate_row(torch, dev, b: int, sm_clock_mhz: float) -> dict:
     return row
 
 
-def phase_kernels(torch, dev, plane, kernel, ladder, ledger, digest,
-                  sm_clock_mhz) -> dict:
+def phase_kernels(torch, dev, plane, replica, kernel, ladder, ledger,
+                  digest, sm_clock_mhz) -> dict:
     """Every kernel, timed at its path's shape: the verify kernel at one
     PrePrepare drain of 100 signatures, the ladder kernels at the ladder's
     1024 lanes, SHA-256 at one state-transfer window of 64 raw blocks."""
@@ -935,7 +1148,16 @@ def phase_kernels(torch, dev, plane, kernel, ladder, ledger, digest,
     row = {"name": "ed25519_verify", "route": "cuda",
            "source": "tpubft_torch/ops/csrc/ed25519_verify.cu",
            "replaces": "tpubft/ops/ed25519_pallas.py:421",
-           "launches": plane["launches"]["ed25519_verify"],
+           # the main path's runs: the plane and the replica cluster
+           "launches": plane["launches"]["ed25519_verify"]
+           + replica["verify_launches"],
+           "launches_by_path": {
+               "plane": plane["launches"]["ed25519_verify"],
+               "replica": replica["verify_launches"],
+               "ladder": next(r["launches"] for r in ladder["rungs"]
+                              if r["kernel"] == "ed25519_verify")},
+           "replica_signatures_per_launch":
+               replica["signatures_per_launch"],
            "max_abs_err": err, "batch": b,
            "host_ms": cuda_ms(lambda: kc.verify(*args), 20),
            "ms": graph_ms(lambda: kc.verify(*args), 20),
@@ -1059,10 +1281,12 @@ def main() -> int:
     ladder = phase_ladder(torch, dev, clock)
     kernel = phase_kernel(torch, dev)
     plane = phase_plane(torch, dev)
+    replica = phase_replica(torch, dev)
     ledger = phase_ledger(torch, dev)
     digest = phase_digest(torch, dev, ledger.pop("raws"))
     phase_rate(torch, dev, clock, info["nvidia_smi"])
-    phase_kernels(torch, dev, plane, kernel, ladder, ledger, digest, clock)
+    phase_kernels(torch, dev, plane, replica, kernel, ladder, ledger, digest,
+                  clock)
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,13 @@
 """The CUDA kernels of the port on a card: the verify kernel against the
 plain PyTorch version and the host scalar engine, the field kernels
 (fe_mul, and fe_inv in both of its designs) against Python ints, the SHA-256 kernel against hashlib and its plain
-version, and the bring-up kernels against theirs. Marked `cuda`; each test
+version, the bring-up kernels against theirs, and a short config-1
+replica cluster on the card. Marked `cuda`; each test
 skips where no card is present (run on the card:
 python -m pytest --noconftest tests/test_torch_cuda.py).
 """
 import hashlib
+import time
 
 import numpy as np
 import pytest
@@ -232,3 +234,51 @@ def test_sha256_roundtrip_refuses_bad_staging(card):
     assert out.numpy().tobytes() == b"".join(
         hashlib.sha256(m).digest() for m in _sha_messages(3, True))
     assert sha256_cuda.LAUNCHES["sha256"] == before + 1
+
+
+def test_replica_cluster_commits_on_the_card(card):
+    """A short config-1 counter cluster on the card: 8 clients, 200
+    writes, every batch on the device route (device_min_verify_batch=1),
+    the verify kernel launched on the path and nothing degraded."""
+    import threading
+
+    from tpubft_torch.apps import counter
+    from tpubft_torch.ops.dispatch import device_breaker
+    from tpubft_torch.testing import InProcessCluster
+    cfg = dict(durability_pipeline=False, autotune_enabled=False,
+               crypto_backend="cuda", device_min_verify_batch=1)
+    per_client, errors = 25, []
+    cluster = InProcessCluster(f=1, num_clients=8, cfg_overrides=cfg)
+    try:
+        cluster.start()
+        clients = [cluster.client(i) for i in range(8)]
+        kc.reset_launches()
+        failures = device_breaker().snapshot()["failures"]
+
+        def drive(client):
+            try:
+                for _ in range(per_client):
+                    client.send_write(counter.encode_add(1),
+                                      timeout_ms=60000)
+            except Exception as exc:  # noqa: BLE001 — asserted below
+                errors.append(exc)
+        threads = [threading.Thread(target=drive, args=(c,))
+                   for c in clients]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        assert not errors, errors
+        reps = list(cluster.replicas.values())
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and any(
+                h.value != 200 for h in cluster.handlers.values()):
+            time.sleep(0.05)
+        assert [h.value for h in cluster.handlers.values()] == [200] * 4
+        assert kc.LAUNCHES["ed25519_verify"] > 0
+        assert all(r.sig.degraded_verifies.value == 0 for r in reps)
+        assert all(v.degraded == 0 for r in reps for v in (
+            r.slow_verifier, r.thr_verifier, r.opt_verifier))
+        assert device_breaker().snapshot()["failures"] == failures
+    finally:
+        cluster.stop()

@@ -11,6 +11,12 @@ key, and R bytes that are not a point encoding.
 `kvbcbench_rows` is the ledger's block shape: the reference's kvbcbench
 (benchmarks/bench_kvbc.py), 8 versioned keys and one Merkle-proven key
 per block.
+
+The package also holds the in-process harnesses (port of
+tpubft/testing/): `InProcessCluster` is exported lazily (PEP 562), since
+`tpubft_torch.testing.slowdown` and `.crashpoints` are imported by the
+consensus engine at module scope and an eager cluster import here would
+close a circular import back into tpubft_torch.consensus.replica.
 """
 from __future__ import annotations
 
@@ -161,3 +167,10 @@ def kvbcbench_rows(blocks: int, keys_per_block: int = 8, big_every: int = 0
                      "block_merkle"))
         out.append(rows)
     return out
+
+
+def __getattr__(name):
+    if name == "InProcessCluster":
+        from tpubft_torch.testing.cluster import InProcessCluster
+        return InProcessCluster
+    raise AttributeError(name)

@@ -1,17 +1,58 @@
 """Metrics components: counters / gauges / statuses with aggregation.
 
-Port of tpubft/utils/metrics.py: named Components own counters, gauges
-and statuses; an Aggregator snapshots all components to JSON. The UDP
-metrics server and the Prometheus endpoint are not ported yet.
+Port of tpubft/utils/metrics.py (concordMetrics,
+util/include/Metrics.hpp): named Components own counters, gauges, and
+statuses; an Aggregator snapshots all components to JSON. The UDP
+metrics server and the Prometheus endpoint are ROADMAP A.9.
 """
 from __future__ import annotations
 
 import json
 import threading
 import time
+from collections import deque
 from typing import Dict, Optional
 
 from tpubft_torch.utils.racecheck import make_lock
+
+
+class Meter:
+    """Trailing-window rate estimator behind throughput gauges
+    (st_blocks_per_sec / st_bytes_per_sec): mark(n) on the hot path,
+    rate() -> events per second over the last `window_s` seconds. Marked
+    from the dispatcher thread, read by metric scrapers — locked like
+    Counter."""
+
+    __slots__ = ("_window", "_events", "_lock")
+
+    def __init__(self, window_s: float = 5.0) -> None:
+        self._window = window_s
+        self._events: deque = deque()        # (monotonic ts, n)
+        # make_lock (not a raw threading.Lock) so the tpulint
+        # static-race pass and the runtime lock-order graph both see
+        # it; a leaf lock — nothing is acquired while it is held
+        self._lock = make_lock("metrics.meter")
+
+    def _trim(self, now: float) -> None:
+        horizon = now - self._window
+        while self._events and self._events[0][0] < horizon:
+            self._events.popleft()
+
+    def mark(self, n: int = 1) -> None:
+        now = time.monotonic()
+        with self._lock:
+            self._events.append((now, n))
+            self._trim(now)
+
+    def rate(self) -> float:
+        now = time.monotonic()
+        with self._lock:
+            self._trim(now)
+            if not self._events:
+                return 0.0
+            total = sum(n for _, n in self._events)
+            span = max(now - self._events[0][0], 0.05)
+            return total / span
 
 
 class Counter:
@@ -21,7 +62,7 @@ class Counter:
 
     def __init__(self) -> None:
         self.value = 0
-        self._lock = make_lock("metrics.counter")   # leaf lock
+        self._lock = make_lock("metrics.counter")   # leaf lock (see Meter)
 
     def inc(self, n: int = 1) -> None:
         with self._lock:
