@@ -50,8 +50,9 @@ line each; any failure exits non-zero:
            (testing.InProcessCluster, the counter app) on the card at
            BASELINE config 1's widths, 100 client principals and the
            reference's batching defaults, crypto_backend "cuda"; the
-           durability pipeline and the autotuner are off (not ported,
-           ROADMAP A.3 and A.8). 100 clients send counter writes in a
+           durability pipeline is off (kept as in the earlier runs) and
+           the autotuner too (not ported, ROADMAP A.8). 100 clients send
+           counter writes in a
            closed loop, one outstanding each, until 3,000 have committed,
            within 120 s. Every reply decodes and each client's replies
            increase, the four counters equal the sum of the adds and
@@ -62,6 +63,37 @@ line each; any failure exits non-zero:
            PrePrepares and requests per PrePrepare, verify launches and
            signatures per launch, the certificate path's launches, and
            the phase's wall time;
+  ledger_replica
+           config 1 as users deploy it: four replicas of
+           testing.InProcessCluster with the SKVBC app over the
+           categorized ledger (KeyValueBlockchain on a MemoryDB, device
+           hashing), FilePersistentStorage WALs in a temporary
+           directory, the durability pipeline on at the reference's
+           defaults, state transfer configured as KvbcReplica deploys
+           it (from the replica's config: ranges of 64 blocks, 4 in
+           flight, a 1 s retry timeout), crypto_backend "cuda", the
+           autotuner off (not ported), 100 client principals, the
+           reference's checkpoint and work windows (150 and 300). Load:
+           100 closed-loop SkvbcClients write kvbcbench blocks (the nine
+           keys of testing.kvbcbench_rows, under each client's key
+           prefix, one ledger block a write) until 2,000 writes commit;
+           printed: requests/s, commit latency p50/p90/p99, durability
+           groups, fsyncs and runs a group, verify launches (counts
+           reset just before each stage's load, read just after).
+           Read-back: 120 acknowledged keys through SkvbcClient.read
+           with the client's reply quorum, each equal to its last
+           acknowledged value. Catch-up: replica 3 is down for a second
+           load until the cluster's stable checkpoint reaches the work
+           window of a replica with empty state; it restarts with an
+           empty ledger and a fresh WAL while the load goes on, and must
+           fetch at least 256 blocks by state transfer; printed: blocks
+           fetched, windows, the window-digest call's ms and the range
+           spans' fetch-to-verified ms, SHA-256 launches, failed device
+           digest calls, digests.DEGRADED. Fails unless every
+           device-sized window took one SHA-256 launch with no host
+           fallback allowed, no device digest call failed, a full
+           64-block window was digested (kept for the kernels line), and
+           replica 3's head block digest equals replica 0's;
   ledger   config 1's categorized KVBC ledger at the kvbcbench block shape
            (800 blocks of 8 versioned keys and one Merkle-proven key) on a
            MemoryDB with use_device_hashing=True, against the same ledger
@@ -91,12 +123,16 @@ line each; any failure exits non-zero:
            hashlib over the same messages and the plain version at
            B=1024;
   kernels  every kernel with its launches on its path (the plane and the
-           replica cluster, the ladder, the state-transfer digests; the
-           verify row splits them by path), its match against the plain
+           two clusters, the ladder, the ledger replica's catch-up and the
+           state-transfer digests; the verify and SHA-256 rows split them
+           by path), its match against the plain
            version, its device time (`ms`, a CUDA graph) and host enqueue
            time (`host_ms`), its bound and the plain version's time;
-           SHA-256 also with its chain floor, and matched against its plain
-           version on both windows and a 1024-node Merkle level.
+           SHA-256 timed on a 64-block window that the ledger replica's
+           catch-up digested, also with its chain floor, and matched
+           against its plain version there, on the digest phase's two
+           windows and on a 1024-node Merkle level;
+  done     the script's wall time from the first phase on.
 
 Then the card's name and power limit as nvidia-smi reports them, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -642,13 +678,128 @@ REPLICA_CONFIG = dict(
     batch_flush_period_ms=7, verify_batch_size=256,
     verify_batch_flush_us=200, device_min_verify_batch=32,
     work_window_size=300, crypto_backend="cuda",
-    # the planes the port does not carry yet (ROADMAP A.3, A.8)
+    # the counter phase keeps the durability pipeline off, so that its
+    # numbers stay comparable with the earlier runs PERF.md keeps (the
+    # ledger_replica phase runs it); the autotuner is not ported (A.8)
     durability_pipeline=False, autotune_enabled=False)
 
 
 def percentile(sorted_ms, q: float) -> float:
     return sorted_ms[min(len(sorted_ms) - 1,
                          int(round(q * (len(sorted_ms) - 1))))]
+
+
+class _ClosedLoop:
+    """`n` clients in a closed loop, one write outstanding each, until
+    `until(commits)` holds or `budget_s` has passed. `write(idx)` sends
+    client idx's next write and returns once it has committed (it raises
+    if the write failed). Records each commit's latency."""
+
+    def __init__(self, n: int, write):
+        self.n = n
+        self.write = write
+        self.errors = []
+
+    def run(self, until, budget_s: float) -> dict:
+        import threading
+        lock = threading.Lock()
+        lat_ms = []
+        stop = threading.Event()
+
+        def drive(idx: int) -> None:
+            try:
+                while not stop.is_set():
+                    t0 = time.perf_counter()
+                    self.write(idx)
+                    ms = (time.perf_counter() - t0) * 1e3
+                    with lock:
+                        lat_ms.append(ms)
+                        if until(len(lat_ms)):
+                            stop.set()
+            except Exception as exc:  # noqa: BLE001 — reported by caller
+                self.errors.append(f"client {idx}: "
+                                   f"{type(exc).__name__}: {exc}")
+                stop.set()
+
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=drive, args=(i,), daemon=True)
+                   for i in range(self.n)]
+        for t in threads:
+            t.start()
+        deadline = t0 + budget_s
+        while not stop.is_set() and time.monotonic() < deadline:
+            stop.wait(0.05)
+            with lock:
+                if until(len(lat_ms)):
+                    stop.set()
+        stop.set()
+        for t in threads:
+            t.join(max(1.0, deadline + 30 - time.monotonic()))
+        load_s = time.monotonic() - t0
+        lat = sorted(lat_ms)
+        return {"committed": len(lat), "load_s": load_s,
+                "requests_per_s": len(lat) / load_s,
+                "commit_latency_ms": {
+                    "p50": percentile(lat, 0.50),
+                    "p90": percentile(lat, 0.90),
+                    "p99": percentile(lat, 0.99), "max": lat[-1]}
+                if lat else None,
+                "budget_s": budget_s,
+                "timed_out": not until(len(lat))}
+
+
+class _SigManagerCount:
+    """Counts SigManager's device batches: while open,
+    crypto.cuda.verify_batch_mixed is wrapped, and a replica built then
+    keeps the wrapper for its life (it takes the function when it is
+    built). Verify launches outside these calls are the certificate
+    path's (the multisig verifier). The count attributes launches only."""
+
+    def __enter__(self):
+        from tpubft_torch.crypto import cuda as crypto_cuda
+        self._mod = crypto_cuda
+        self._real = real = crypto_cuda.verify_batch_mixed
+        self.calls = 0
+
+        def counted(items):
+            self.calls += 1
+            return real(items)
+        crypto_cuda.verify_batch_mixed = counted
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._mod.verify_batch_mixed = self._real
+
+
+def device_health(reps, br0: dict) -> dict:
+    """What the replicas' verifiers answered on the host instead of the
+    card, and the device breaker against its snapshot `br0`."""
+    from tpubft_torch.ops.dispatch import device_breaker
+    br1 = device_breaker().snapshot()
+    return {"sig_degraded": [r.sig.degraded_verifies.value for r in reps],
+            # batches under device_min_verify_batch verify on the host by
+            # design (the reference's rule); runtime fallbacks are
+            # `degraded`
+            "host_small_batch_verifies": [r.sig.scalar_fallbacks.value
+                                          for r in reps],
+            "multisig_degraded": [getattr(v, "degraded", 0)
+                                  for r in reps for v in (
+                                      r.slow_verifier, r.thr_verifier,
+                                      r.opt_verifier)],
+            "breaker": br1["state"],
+            "breaker_failures": br1["failures"] - br0["failures"],
+            "breaker_fast_fails": br1["fast_fails"] - br0["fast_fails"]}
+
+
+def device_health_problems(h: dict) -> list:
+    problems = []
+    if any(h["sig_degraded"]) or any(h["multisig_degraded"]):
+        problems.append("a verify degraded or fell back to the host")
+    if h["breaker_failures"] or h["breaker_fast_fails"] \
+            or h["breaker"] != "closed":
+        problems.append(f"device breaker {h['breaker']}, "
+                        f"{h['breaker_failures']} failures")
+    return problems
 
 
 def phase_replica(torch, dev, clients: int = 100, target: int = 3000,
@@ -659,35 +810,20 @@ def phase_replica(torch, dev, clients: int = 100, target: int = 3000,
     outstanding each) until `target` requests have committed. Every
     reply is checked, the four replicas must agree, and the verify
     kernel must have carried the path with nothing degraded."""
-    import threading
-
     import numpy as np
 
     from tpubft_torch.apps import counter
-    from tpubft_torch.crypto import cuda as crypto_cuda
     from tpubft_torch.ops import ed25519_cuda as kc
     from tpubft_torch.ops.dispatch import device_breaker
     from tpubft_torch.testing import InProcessCluster
     from tpubft_torch.utils import flight
 
     cfg = dict(REPLICA_CONFIG)
-    # SigManager's batches (admission, PrePrepare requests) go through
-    # verify_batch_mixed; the launches outside it are the certificate
-    # path's (the multisig verifier). The count attributes launches only.
-    mixed = crypto_cuda.verify_batch_mixed
-    sig_calls = [0]
-
-    def counted_mixed(items):
-        sig_calls[0] += 1
-        return mixed(items)
-    crypto_cuda.verify_batch_mixed = counted_mixed
     t_phase = time.monotonic()
-    try:
+    with _SigManagerCount() as sig:
         cluster = InProcessCluster(f=1, c=0, num_clients=clients,
                                    seed=b"chip-smoke-replica",
                                    cfg_overrides=cfg)
-    finally:
-        crypto_cuda.verify_batch_mixed = mixed
     rep0 = cluster.replicas[0]
     assert rep0.keys.threshold_scheme == "multisig-ed25519", \
         rep0.keys.threshold_scheme
@@ -700,59 +836,37 @@ def phase_replica(torch, dev, clients: int = 100, target: int = 3000,
           "crypto_backend": rep0.crypto_backend})
     rng = np.random.default_rng(3)
     deltas = rng.integers(1, 10, size=(clients, 4 * target // clients + 64))
-    lock = threading.Lock()
-    committed = [0]
-    lat_ms, per_client, errors = [], {}, []
-    stop = threading.Event()
+    per_client = {i: [] for i in range(clients)}
+    bft_clients = []
 
-    def drive(idx: int, client) -> None:
-        got = per_client[idx] = []
-        try:
-            for delta in deltas[idx]:
-                with lock:
-                    if committed[0] >= target:
-                        return
-                t0 = time.perf_counter()
-                raw = client.send_write(counter.encode_add(int(delta)),
-                                        timeout_ms=int(budget_s * 1000))
-                ms = (time.perf_counter() - t0) * 1e3
-                got.append((int(delta), counter.decode_reply(raw)))
-                with lock:
-                    lat_ms.append(ms)
-                    committed[0] += 1
-                if stop.is_set():
-                    return
-        except Exception as exc:  # noqa: BLE001 — reported below
-            errors.append(f"client {idx}: {type(exc).__name__}: {exc}")
+    def write(idx: int) -> None:
+        got = per_client[idx]
+        delta = int(deltas[idx][len(got)])
+        raw = bft_clients[idx].send_write(counter.encode_add(delta),
+                                          timeout_ms=int(budget_s * 1000))
+        got.append((delta, counter.decode_reply(raw)))
 
     breaker = device_breaker()
+    loop = _ClosedLoop(clients, write)
     try:
         cluster.start()
-        bft_clients = [cluster.client(i) for i in range(clients)]
+        bft_clients += [cluster.client(i) for i in range(clients)]
         for c in bft_clients:
             c.start()
         breaker.reset()
         br0 = breaker.snapshot()
         flight.kernel_profiler().reset()
-        sig_calls[0] = 0
+        sig.calls = 0
         kc.reset_launches()
-        t0 = time.monotonic()
-        threads = [threading.Thread(target=drive, args=(i, c), daemon=True)
-                   for i, c in enumerate(bft_clients)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(max(0.0, budget_s - (time.monotonic() - t0)))
-        load_s = time.monotonic() - t0
-        stop.set()
+        load = loop.run(lambda n: n >= target, budget_s)
         launches = kc.LAUNCHES["ed25519_verify"]
-        sig_launches = sig_calls[0]
+        sig_launches = sig.calls
         profile = flight.kernel_profiler().snapshot().get("ed25519") or {}
-        br1 = breaker.snapshot()
+        reps = list(cluster.replicas.values())
+        health = device_health(reps, br0)
         # every committed write executes on all four replicas
         done = sum(len(v) for v in per_client.values())
         settle = time.monotonic() + 30
-        reps = list(cluster.replicas.values())
         while time.monotonic() < settle and not (
                 len({r.last_executed for r in reps}) == 1
                 and all(h.value == cluster.handlers[0].value
@@ -765,24 +879,15 @@ def phase_replica(torch, dev, clients: int = 100, target: int = 3000,
         last_exec = [r.last_executed for r in reps]
         primary = cluster.metric(0, "counters", "sent_preprepares")
         executed = cluster.metric(0, "counters", "executed_requests")
-        sig_degraded = [r.sig.degraded_verifies.value for r in reps]
-        sig_fallbacks = [r.sig.scalar_fallbacks.value for r in reps]
-        multisig_degraded = [getattr(v, "degraded", 0) for r in reps for v in (
-            r.slow_verifier, r.thr_verifier, r.opt_verifier)]
         slow_commits = sum(cluster.metric(r, "counters", "slow_path_commits")
                            for r in range(cluster.n))
         fast_commits = sum(cluster.metric(r, "counters", "fast_path_commits")
                            for r in range(cluster.n))
     finally:
-        stop.set()
         cluster.stop()
-    lat = sorted(lat_ms)
     out = {"phase": "replica", "committed": done,
-           "load_s": load_s, "requests_per_s": done / load_s,
-           "commit_latency_ms": {
-               "p50": percentile(lat, 0.50), "p90": percentile(lat, 0.90),
-               "p99": percentile(lat, 0.99), "max": lat[-1]}
-           if lat else None,
+           "load_s": load["load_s"], "requests_per_s": done / load["load_s"],
+           "commit_latency_ms": load["commit_latency_ms"],
            "preprepares": primary, "executed_requests": executed,
            "requests_per_preprepare": executed / primary if primary else 0,
            "slow_path_commits": slow_commits,
@@ -794,20 +899,14 @@ def phase_replica(torch, dev, clients: int = 100, target: int = 3000,
            "profile": profile,
            "counter_values": values, "sum_of_adds": adds,
            "last_executed": last_exec, "replies_increase": monotone,
-           "sig_degraded": sig_degraded,
-           # batches under device_min_verify_batch verify on the host by
-           # design (the reference's rule); runtime fallbacks are `degraded`
-           "host_small_batch_verifies": sig_fallbacks,
-           "multisig_degraded": multisig_degraded,
-           "breaker": br1["state"],
-           "breaker_failures": br1["failures"] - br0["failures"],
-           "breaker_fast_fails": br1["fast_fails"] - br0["fast_fails"],
-           "errors": errors[:5],
+           **health,
+           "errors": loop.errors[:5],
            "wall_s": time.monotonic() - t_phase}
     emit(out)
     problems = []
-    if errors:
-        problems.append(f"{len(errors)} clients failed: {errors[:3]}")
+    if loop.errors:
+        problems.append(f"{len(loop.errors)} clients failed: "
+                        f"{loop.errors[:3]}")
     if done < target:
         problems.append(f"{done} of {target} requests committed in "
                         f"{budget_s} s")
@@ -819,14 +918,373 @@ def phase_replica(torch, dev, clients: int = 100, target: int = 3000,
         problems.append(f"last_executed differs: {last_exec}")
     if launches < 1:
         problems.append("the verify kernel was not launched on the path")
-    if any(sig_degraded) or any(multisig_degraded):
-        problems.append("a verify degraded or fell back to the host")
-    if out["breaker_failures"] or out["breaker_fast_fails"] \
-            or out["breaker"] != "closed":
-        problems.append(f"device breaker {out['breaker']}, "
-                        f"{out['breaker_failures']} failures")
+    problems += device_health_problems(health)
     if problems:
         raise AssertionError("; ".join(problems))
+    return out
+
+
+LEDGER_REPLICA_CONFIG = dict(
+    REPLICA_CONFIG,
+    # the reference's defaults for the ledger replica: the durability
+    # pipeline on at its group shape, the checkpoint and work windows,
+    # and state transfer's ranges of 64 blocks, 4 in flight
+    durability_pipeline=True, durability_group_max=8,
+    durability_window_us=1000, checkpoint_window_size=150,
+    work_window_size=300, state_transfer_batch_blocks=64,
+    st_window_ranges=4, st_device_digest_threshold=16,
+    # the autotuner is not ported (ROADMAP A.8)
+    autotune_enabled=False)
+
+
+class _KvbcbenchWrites:
+    """Client idx's writes for _ClosedLoop: each one kvbcbench block's
+    nine keys and values (testing.kvbcbench_rows: eight versioned keys
+    and the Merkle key; SkvbcHandler keeps a write's whole writeset in
+    its one versioned category) under the client's own key prefix, each
+    value naming the write. Keeps, per key, the value of its last
+    acknowledged write."""
+
+    def __init__(self, skvbc_clients, rows, timeout_ms: int):
+        self.clients = skvbc_clients
+        self.rows = rows
+        self.timeout_ms = timeout_ms
+        self.acked = {}
+        self.next_write = [0] * len(skvbc_clients)
+
+    def __call__(self, idx: int) -> None:
+        j = self.next_write[idx]
+        prefix = b"c%03d/" % idx
+        ws = [(prefix + key, value + b"/w%d" % j)
+              for _cat, key, value, _t in self.rows[j % len(self.rows)]]
+        reply = self.clients[idx].write(ws, timeout_ms=self.timeout_ms)
+        if not reply.success:
+            raise AssertionError(f"write rejected: {reply}")
+        self.next_write[idx] += 1
+        self.acked.update(ws)
+
+
+def _durability_totals(reps) -> dict:
+    groups = sum(r.durability.m_groups.value for r in reps)
+    runs = sum(r.durability.m_runs.value for r in reps)
+    return {"groups": groups, "runs": runs,
+            "fsyncs": sum(r.durability.m_fsyncs.value for r in reps),
+            "fsync_ms": sum(r.durability.m_fsync_us.value
+                            for r in reps) / 1e3,
+            "runs_per_group": runs / groups if groups else 0.0,
+            "replies_signed": sum(r.durability.m_signed.value
+                                  for r in reps)}
+
+
+def _durability_delta(after: dict, before: dict) -> dict:
+    out = {k: after[k] - before[k] for k in after if k != "runs_per_group"}
+    out["runs_per_group"] = (out["runs"] / out["groups"]
+                             if out["groups"] else 0.0)
+    return out
+
+
+def phase_ledger_replica(torch, dev, clients: int = 100,
+                         target: int = 2000, reads: int = 120,
+                         min_fetched: int = 256,
+                         checkpoint_window: int = 150,
+                         work_window: int = 300,
+                         budget_s: float = 600.0) -> dict:
+    """Config 1 as users deploy it: four replicas of testing.
+    InProcessCluster running the SKVBC app over the categorized ledger
+    (KeyValueBlockchain on a MemoryDB, device hashing), with file WALs,
+    the durability pipeline on and state transfer configured as
+    KvbcReplica deploys it, on the card. Three stages: a closed-loop load
+    of kvbcbench blocks until `target` writes commit; a read-back of
+    `reads` acknowledged keys with the client's reply quorum; and a
+    catch-up: replica 3 is down for a second load until the cluster's
+    stable checkpoint is past the work window of a replica with empty
+    state, then restarts with empty state and fetches the ledger by
+    state transfer, whose window digests go through the SHA-256 kernel.
+    Launch counts are reset just before each stage's load and read just
+    after it. Returns the phase's line and, under "window_raws", one
+    full window the catch-up digested (for the kernels line)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from tpubft_torch import testing
+    from tpubft_torch.apps import skvbc
+    from tpubft_torch.consensus.persistent import FilePersistentStorage
+    from tpubft_torch.kvbc import KeyValueBlockchain
+    from tpubft_torch.ops import ed25519_cuda as kc
+    from tpubft_torch.ops import sha256_cuda
+    from tpubft_torch.ops.dispatch import device_breaker
+    from tpubft_torch.statetransfer import digests
+    from tpubft_torch.storage import MemoryDB
+    from tpubft_torch.testing import InProcessCluster
+    from tpubft_torch.utils.tracing import get_tracer
+
+    cfg = dict(LEDGER_REPLICA_CONFIG,
+               checkpoint_window_size=checkpoint_window,
+               work_window_size=work_window)
+    reduced = {k: v for k, v in (("checkpoint_window_size",
+                                  checkpoint_window),
+                                 ("work_window_size", work_window))
+               if v != LEDGER_REPLICA_CONFIG[k]}
+    t_phase = time.monotonic()
+    wal_dir = tempfile.mkdtemp(prefix="chip-smoke-wal-")
+    incarnation = {}
+
+    def storage_factory(r):
+        # a replica restarted "with empty state" gets a fresh WAL
+        gen = incarnation.get(r, 0)
+        return FilePersistentStorage(
+            os.path.join(wal_dir, f"r{r}-{gen}.wal"))
+
+    def handler_factory(_r=None):
+        return skvbc.SkvbcHandler(KeyValueBlockchain(MemoryDB()))
+
+    # every window the lagging replica digests, timed around the seam;
+    # the first full-size one is kept for the kernels line
+    real_window = digests.window_digests
+    windows = []
+    full_window = []
+
+    def timed_window(raws, use_device=True, threshold=16, device=None,
+                     degrade=True):
+        t0 = time.perf_counter()
+        try:
+            return real_window(raws, use_device, threshold, device, degrade)
+        finally:
+            windows.append({"blocks": len(raws), "use_device": use_device,
+                            "degrade": degrade,
+                            "ms": (time.perf_counter() - t0) * 1e3})
+            if not full_window and len(raws) == cfg[
+                    "state_transfer_batch_blocks"]:
+                full_window.extend(raws)
+    spans = []
+    recording = [False]
+
+    def export(span):
+        if recording[0] and span.name == "st_range":
+            spans.append((span.tags.get("outcome"),
+                          span.duration_s * 1e3))
+    get_tracer().add_exporter(export)
+
+    with _SigManagerCount() as sig:
+        cluster = InProcessCluster(
+            f=1, c=0, num_clients=clients, seed=b"chip-smoke-ledger",
+            handler_factory=handler_factory,
+            storage_factory=storage_factory, cfg_overrides=cfg)
+    rep0 = cluster.replicas[0]
+    emit({"phase": "ledger_replica", "step": "config", "n": cluster.n,
+          "f": 1, "c": 0, "clients": clients, "target_requests": target,
+          "read_back": reads, "min_fetched_blocks": min_fetched,
+          "config": cfg, "reduced": reduced,
+          "scheme": rep0.keys.threshold_scheme,
+          "durability_pipeline": rep0.durability is not None,
+          "autotune_enabled": rep0.cfg.autotune_enabled,
+          "crypto_backend": rep0.crypto_backend,
+          "device_hashing": rep0.handler.blockchain._use_device,
+          "st_config": vars(rep0.state_transfer.cfg),
+          "wal": "FilePersistentStorage"})
+    breaker = device_breaker()
+    problems = []
+    out = {"phase": "ledger_replica", "config": {
+        "checkpoint_window_size": checkpoint_window,
+        "work_window_size": work_window, "clients": clients},
+        "reduced": reduced}
+    try:
+        cluster.start()
+        bft = [cluster.client(i) for i in range(clients)]
+        for c in bft:
+            c.start()
+        kvs = [skvbc.SkvbcClient(c) for c in bft]
+        writes = _KvbcbenchWrites(kvs, testing.kvbcbench_rows(64),
+                                  timeout_ms=int(budget_s * 1000 / 4))
+        loop = _ClosedLoop(clients, writes)
+        reps = list(cluster.replicas.values())
+
+        # ---- load ----
+        breaker.reset()
+        br0 = breaker.snapshot()
+        dur0 = _durability_totals(reps)
+        sig.calls = 0
+        reset_all_launches()
+        load = loop.run(lambda n: n >= target, budget_s=budget_s / 4)
+        load["verify_launches"] = kc.LAUNCHES["ed25519_verify"]
+        load["sigmanager_launches"] = sig.calls
+        load["sha256_launches"] = sha256_cuda.LAUNCHES["sha256"]
+        load["durability"] = _durability_delta(_durability_totals(reps),
+                                               dur0)
+        load["preprepares"] = cluster.metric(0, "counters",
+                                             "sent_preprepares")
+        load["head_block"] = rep0.handler.blockchain.last_block_id
+        load["last_stable"] = rep0.last_stable
+        out["load"] = load
+        emit({"phase": "ledger_replica", "step": "load", **load})
+        if loop.errors:
+            raise AssertionError(f"load: {loop.errors[:3]}")
+        if load["committed"] < target:
+            raise AssertionError(f"load: {load['committed']} of {target} "
+                                 "writes committed")
+
+        # ---- read-back ----
+        rng = np.random.default_rng(9)
+        keys = sorted(writes.acked)
+        sample = [keys[i] for i in rng.choice(len(keys), size=min(
+            reads, len(keys)), replace=False)]
+        t0 = time.monotonic()
+        got = {}
+        for i in range(0, len(sample), 10):
+            got.update(kvs[i // 10 % clients].read(sample[i:i + 10],
+                                                    timeout_ms=60000))
+        wrong = [k for k in sample if got.get(k) != writes.acked[k]]
+        out["read_back"] = {"keys": len(sample), "wrong": len(wrong),
+                            "reads": -(-len(sample) // 10),
+                            "s": time.monotonic() - t0,
+                            "quorum": "byzantine_safe (f+1 matching)"}
+        emit({"phase": "ledger_replica", "step": "read_back",
+              **out["read_back"]})
+        if len(sample) < reads or wrong:
+            raise AssertionError(f"read-back: {len(wrong)} of "
+                                 f"{len(sample)} keys wrong: {wrong[:3]}")
+
+        # ---- catch-up ----
+        cluster.kill(3)
+        up = [cluster.replicas[r] for r in (0, 1, 2)]
+        killed_at = reps[3].last_executed
+        reset_all_launches()
+        behind = loop.run(
+            lambda n: min(r.last_stable for r in up) >= work_window,
+            budget_s=budget_s / 3)
+        behind["verify_launches"] = kc.LAUNCHES["ed25519_verify"]
+        behind["last_stable"] = [r.last_stable for r in up]
+        behind["replica3_last_executed"] = killed_at
+        out["behind"] = behind
+        emit({"phase": "ledger_replica", "step": "behind", **behind})
+        if loop.errors or behind["timed_out"]:
+            raise AssertionError(f"second load: {loop.errors[:3]} "
+                                 f"stable {behind['last_stable']}")
+        incarnation[3] = 1
+        digests.window_digests = timed_window
+        digests.DEGRADED = 0
+        reset_all_launches()
+        recording[0] = True
+        t_restart = time.monotonic()
+        rep3 = cluster.restart(3)
+        st = rep3.state_transfer
+
+        def caught_up(_n):
+            # a transfer completed: replica 3 adopted a checkpoint past
+            # the work window it restarted with
+            c = st.metrics.snapshot()["counters"]
+            return (c["blocks_fetched"] >= min_fetched
+                    and not st.is_fetching
+                    and rep3.last_executed >= work_window)
+        during = loop.run(caught_up, budget_s=budget_s / 3)
+        catch_up_s = time.monotonic() - t_restart
+        recording[0] = False
+        digests.window_digests = real_window
+        sha_launches = sha256_cuda.LAUNCHES["sha256"]
+        verify_during = kc.LAUNCHES["ed25519_verify"]
+        counters = st.metrics.snapshot()["counters"]
+        h0 = rep0.handler.blockchain
+        h3 = rep3.handler.blockchain
+        head = h3.last_block_id
+        verified = sorted(ms for outcome, ms in spans
+                          if outcome == "verified")
+        win_ms = sorted(w["ms"] for w in windows)
+        threshold = st.cfg.device_digest_threshold
+        catch = {
+            "load_during": during, "catch_up_s": catch_up_s,
+            "blocks_fetched": counters["blocks_fetched"],
+            "bytes_fetched": counters["bytes_fetched"],
+            "windows": len(windows),
+            "blocks_per_window": sorted({w["blocks"] for w in windows}),
+            "windows_on_device": counters["device_digest_batches"],
+            "windows_on_host": sum(1 for w in windows
+                                   if w["blocks"] < threshold
+                                   or not w["use_device"]),
+            "scalar_digests": counters["scalar_digests"],
+            "device_digest_failures": counters["device_digest_failures"],
+            "windows_allowed_to_degrade": sum(1 for w in windows
+                                              if w["degrade"]),
+            "window_digest_ms": {
+                "p50": percentile(win_ms, 0.5),
+                "p90": percentile(win_ms, 0.9), "max": win_ms[-1]}
+            if win_ms else None,
+            "range_fetch_to_verified_ms": {
+                "p50": percentile(verified, 0.5),
+                "p90": percentile(verified, 0.9), "max": verified[-1]}
+            if verified else None,
+            "ranges_requeued": counters["ranges_requeued"],
+            "source_failovers": counters["source_failovers"],
+            "st_blocks_per_sec_gauge": cluster.metric(
+                3, "gauges", "st_blocks_per_sec",
+                component="state_transfer"),
+            "sha256_launches": sha_launches,
+            "verify_launches": verify_during,
+            "degraded": digests.DEGRADED,
+            "replica3_head": head, "replica0_head": h0.last_block_id,
+            "head_digest_equal": bool(head) and h3.block_digest(head)
+            == h0.block_digest(head),
+            "replica3_last_executed": rep3.last_executed,
+            "stable": [r.last_stable for r in up]}
+        out["catch_up"] = catch
+        emit({"phase": "ledger_replica", "step": "catch_up", **catch})
+        if loop.errors or during["timed_out"]:
+            problems.append(f"catch-up: {loop.errors[:3]}, counters "
+                            f"{counters}, replica 3 at "
+                            f"{rep3.last_executed}")
+        if catch["blocks_fetched"] < min_fetched:
+            problems.append(f"{catch['blocks_fetched']} blocks fetched, "
+                            f"fewer than {min_fetched}")
+        if sha_launches < 1 or sha_launches != catch["windows_on_device"]:
+            problems.append(f"{sha_launches} SHA-256 launches for "
+                            f"{catch['windows_on_device']} device windows")
+        if catch["windows_on_host"] != sum(1 for w in windows
+                                           if w["blocks"] < threshold):
+            problems.append("a window of the device threshold or more "
+                            "was digested on the host")
+        if catch["degraded"] or catch["device_digest_failures"] \
+                or catch["windows_allowed_to_degrade"]:
+            problems.append(f"{catch['degraded']} windows degraded to "
+                            f"hashlib, {catch['device_digest_failures']} "
+                            "device digest calls failed")
+        if not full_window:
+            problems.append("no window of state_transfer_batch_blocks "
+                            "blocks was digested")
+        if not catch["head_digest_equal"]:
+            problems.append("replica 3's head digest differs from "
+                            "replica 0's")
+        # the three replicas that stayed up agree
+        heads = [cluster.handlers[r].blockchain for r in (0, 1, 2)]
+        settle = time.monotonic() + 30
+        while time.monotonic() < settle and len(
+                {b.last_block_id for b in heads}) != 1:
+            time.sleep(0.05)
+        common = min(b.last_block_id for b in heads)
+        out["replicas_agree"] = len({b.block_digest(common)
+                                     for b in heads}) == 1
+        if not out["replicas_agree"]:
+            problems.append("replicas 0-2 differ at their common head")
+        health = device_health(list(cluster.replicas.values()), br0)
+        out.update(health)
+        problems += device_health_problems(health)
+        if load["verify_launches"] < 1:
+            problems.append("the verify kernel was not launched on "
+                            "admission")
+    finally:
+        recording[0] = False
+        digests.window_digests = real_window
+        cluster.stop()
+        shutil.rmtree(wal_dir, ignore_errors=True)
+    out["verify_launches"] = (out["load"]["verify_launches"]
+                              + out["behind"]["verify_launches"]
+                              + out["catch_up"]["verify_launches"])
+    out["sha256_launches"] = out["catch_up"]["sha256_launches"]
+    out["wall_s"] = time.monotonic() - t_phase
+    emit(out)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    out["window_raws"] = list(full_window)
     return out
 
 
@@ -1126,11 +1584,12 @@ def sha256_rate_row(torch, dev, b: int, sm_clock_mhz: float) -> dict:
     return row
 
 
-def phase_kernels(torch, dev, plane, replica, kernel, ladder, ledger,
-                  digest, sm_clock_mhz) -> dict:
+def phase_kernels(torch, dev, plane, replica, ledger_replica, kernel,
+                  ladder, ledger, digest, sm_clock_mhz) -> dict:
     """Every kernel, timed at its path's shape: the verify kernel at one
     PrePrepare drain of 100 signatures, the ladder kernels at the ladder's
-    1024 lanes, SHA-256 at one state-transfer window of 64 raw blocks."""
+    1024 lanes, SHA-256 at a state-transfer window of 64 raw blocks that
+    the ledger replica's catch-up digested."""
     import numpy as np
 
     from tpubft_torch import testing
@@ -1148,12 +1607,13 @@ def phase_kernels(torch, dev, plane, replica, kernel, ladder, ledger,
     row = {"name": "ed25519_verify", "route": "cuda",
            "source": "tpubft_torch/ops/csrc/ed25519_verify.cu",
            "replaces": "tpubft/ops/ed25519_pallas.py:421",
-           # the main path's runs: the plane and the replica cluster
+           # the main path's runs: the plane and the two clusters
            "launches": plane["launches"]["ed25519_verify"]
-           + replica["verify_launches"],
+           + replica["verify_launches"] + ledger_replica["verify_launches"],
            "launches_by_path": {
                "plane": plane["launches"]["ed25519_verify"],
                "replica": replica["verify_launches"],
+               "ledger_replica": ledger_replica["verify_launches"],
                "ladder": next(r["launches"] for r in ladder["rungs"]
                               if r["kernel"] == "ed25519_verify")},
            "replica_signatures_per_launch":
@@ -1191,7 +1651,8 @@ def phase_kernels(torch, dev, plane, replica, kernel, ladder, ledger,
                 "lanes", "lanes_per_element", "ms", "host_ms", "bound_ms",
                 "share_of_bound", "mismatches_vs_int",
                 "mismatches_vs_plain")}
-    rows.append(sha256_kernel_row(torch, dev, ledger, digest, sm_clock_mhz))
+    rows.append(sha256_kernel_row(torch, dev, ledger_replica, ledger, digest,
+                                  sm_clock_mhz))
     out = {"kernels": rows}
     emit(out)
     bad = [r["name"] for r in rows if r["max_abs_err"]]
@@ -1214,45 +1675,58 @@ LADDER_REPLACES = {
     "fe_table_gather": "tools/pallas_bringup.py:175"}
 
 
-def sha256_kernel_row(torch, dev, ledger, digest, sm_clock_mhz) -> dict:
-    """The SHA-256 kernel at config 1's launch shape, a state-transfer
-    window of 64 raw ledger blocks, against its plain version there, on
-    the mixed window and on a 1024-node Merkle level; launches are the
-    digest phase's (the migrate-chunk ledger launched none), the stress
-    ledger's beside them."""
+def sha256_kernel_row(torch, dev, ledger_replica, ledger, digest,
+                      sm_clock_mhz) -> dict:
+    """The SHA-256 kernel at the shape the main path launched it: one
+    full window (64 raw blocks) that the ledger replica's catch-up
+    digested, timed and held against its plain version there; also
+    against the plain version on the digest phase's first window, its
+    mixed window and a 1024-node Merkle level. Launches are the ledger
+    replica's catch-up windows and the digest phase's (the
+    migrate-chunk ledger launched none), the stress ledger's beside
+    them."""
     import hashlib
 
     from tpubft_torch.ops import sha256 as sha
     from tpubft_torch.ops import sha256_cuda
+    window = ledger_replica["window_raws"]
     first, mixed = digest["window_raws"]
     errs, inputs = {}, {}
-    for name, msgs in (("mixed_window", mixed),
+    for name, msgs in (("digest_window", first),
+                       ("mixed_window", mixed),
                        ("merkle_level_1024", merkle_messages(1024, seed=8)),
-                       ("window", first)):
+                       ("catch_up_window", window)):
         data, offs, host = inputs[name] = sha256_inputs(msgs, dev)
         got = sha256_cuda.sha256_raw(data, offs, host)
         plain = sha.plain_sha256_raw(data, offs)
         errs[name] = int((got.int() - plain.int()).abs().max())
     t0 = time.perf_counter()
-    for r in first:
+    for r in window:
         hashlib.sha256(r).digest()
     hashlib_ms = (time.perf_counter() - t0) * 1e3
 
     def call():
         return sha256_cuda.sha256_raw(data, offs, host)
-    lengths = [len(r) for r in first]
+    lengths = [len(r) for r in window]
     bound = work_bound_ms(*sha256_cuda.work(lengths), sm_clock_mhz)
     return {"name": "sha256", "route": "cuda",
             "source": "tpubft_torch/ops/csrc/sha256.cu",
             "replaces": "tpubft/ops/sha256.py:82 (and :178)",
-            "launches": digest["launches"]
+            "launches": ledger_replica["sha256_launches"]
+            + digest["launches"]
             + ledger["migrate_chunks"]["sha256_launches"],
+            "launches_by_path": {
+                "ledger_replica_catch_up": ledger_replica["sha256_launches"],
+                "digest": digest["launches"],
+                "migrate_chunks": ledger["migrate_chunks"]["sha256_launches"]},
             "stress_launches": ledger["stress"]["sha256_launches"],
             "max_abs_err": max(errs.values()), "max_abs_err_by_input": errs,
-            "batch": len(first),
+            "batch": len(window), "bytes_in": sum(lengths),
             "compressions": int(sum(sha.blocks_needed(n) for n in lengths)),
             "host_ms": cuda_ms(call, 50),
             "ms": graph_ms(call, 50),
+            "digest_window_ms": graph_ms(
+                lambda: sha256_cuda.sha256_raw(*inputs["digest_window"]), 20),
             "mixed_window_ms": graph_ms(
                 lambda: sha256_cuda.sha256_raw(*inputs["mixed_window"]), 20),
             "mixed_window_chain_floor_ms": sha256_cuda.chain_floor_ms(
@@ -1265,7 +1739,7 @@ def sha256_kernel_row(torch, dev, ledger, digest, sm_clock_mhz) -> dict:
             "round_cycles": sha256_cuda.ROUND_CYCLES,
             "library_ms": None,
             "hashlib_host_ms": hashlib_ms,
-            "path": "state-transfer digests"}
+            "path": "state-transfer digests (ledger replica catch-up)"}
 
 
 def main() -> int:
@@ -1276,17 +1750,20 @@ def main() -> int:
         return fail("torch.cuda.is_available() is false: no card")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    t_start = time.monotonic()
     info = phase_device(torch)
     clock = info["clocks_max_sm_mhz"]
     ladder = phase_ladder(torch, dev, clock)
     kernel = phase_kernel(torch, dev)
     plane = phase_plane(torch, dev)
     replica = phase_replica(torch, dev)
+    ledger_replica = phase_ledger_replica(torch, dev)
     ledger = phase_ledger(torch, dev)
     digest = phase_digest(torch, dev, ledger.pop("raws"))
     phase_rate(torch, dev, clock, info["nvidia_smi"])
-    phase_kernels(torch, dev, plane, replica, kernel, ladder, ledger, digest,
-                  clock)
+    phase_kernels(torch, dev, plane, replica, ledger_replica, kernel, ladder,
+                  ledger, digest, clock)
+    emit({"phase": "done", "wall_s": time.monotonic() - t_start})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

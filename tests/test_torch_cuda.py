@@ -1,8 +1,10 @@
 """The CUDA kernels of the port on a card: the verify kernel against the
 plain PyTorch version and the host scalar engine, the field kernels
 (fe_mul, and fe_inv in both of its designs) against Python ints, the SHA-256 kernel against hashlib and its plain
-version, the bring-up kernels against theirs, and a short config-1
-replica cluster on the card. Marked `cuda`; each test
+version, the bring-up kernels against theirs, a short config-1
+replica cluster on the card, and an SKVBC ledger cluster (one write
+through the durability pipeline, one catch-up by state transfer whose
+windows go through the SHA-256 kernel). Marked `cuda`; each test
 skips where no card is present (run on the card:
 python -m pytest --noconftest tests/test_torch_cuda.py).
 """
@@ -280,5 +282,93 @@ def test_replica_cluster_commits_on_the_card(card):
         assert all(v.degraded == 0 for r in reps for v in (
             r.slow_verifier, r.thr_verifier, r.opt_verifier))
         assert device_breaker().snapshot()["failures"] == failures
+    finally:
+        cluster.stop()
+
+
+def _skvbc_cluster_on_card(**overrides):
+    from tpubft_torch.apps import skvbc
+    from tpubft_torch.kvbc import KeyValueBlockchain
+    from tpubft_torch.storage import MemoryDB
+    from tpubft_torch.testing import InProcessCluster
+
+    def handler(_r=None):
+        return skvbc.SkvbcHandler(KeyValueBlockchain(MemoryDB()))
+    cfg = dict(autotune_enabled=False, crypto_backend="cuda",
+               device_min_verify_batch=1, **overrides)
+    return InProcessCluster(f=1, num_clients=1, handler_factory=handler,
+                            cfg_overrides=cfg)
+
+
+def test_skvbc_write_commits_through_the_pipeline_on_the_card(card):
+    """One SKVBC write on the card with the durability pipeline on: the
+    verify kernel admits it, every replica lands the block through a
+    group fsync, and nothing degrades."""
+    from tpubft_torch.apps import skvbc
+    from tpubft_torch.ops.dispatch import device_breaker
+    cluster = _skvbc_cluster_on_card()
+    try:
+        cluster.start()
+        kv = skvbc.SkvbcClient(cluster.client(0))
+        kc.reset_launches()
+        failures = device_breaker().snapshot()["failures"]
+        assert kv.write([(b"card", b"1")], timeout_ms=60000).success
+        deadline = time.monotonic() + 30
+        reps = list(cluster.replicas.values())
+        while time.monotonic() < deadline and not all(
+                r.handler.blockchain.last_block_id == 1
+                and r.durability.m_groups.value > 0 for r in reps):
+            time.sleep(0.05)
+        assert all(r.handler.blockchain.last_block_id == 1 for r in reps)
+        assert all(r.durability.m_groups.value > 0 for r in reps)
+        assert kc.LAUNCHES["ed25519_verify"] > 0
+        assert all(r.sig.degraded_verifies.value == 0 for r in reps)
+        assert device_breaker().snapshot()["failures"] == failures
+        assert kv.read([b"card"], timeout_ms=60000) == {b"card": b"1"}
+    finally:
+        cluster.stop()
+
+
+def test_catch_up_window_goes_through_the_sha256_kernel(card):
+    """A replica restarted with empty state after the cluster moved past
+    its work window fetches its ledger by state transfer; its windows of
+    16 blocks or more are digested by the SHA-256 kernel (launches
+    counted, none degraded or failed) and its head digest equals replica
+    0's."""
+    from tpubft_torch.apps import skvbc
+    from tpubft_torch.statetransfer import digests
+    cluster = _skvbc_cluster_on_card(checkpoint_window_size=5,
+                                     work_window_size=10,
+                                     fast_path_timeout_ms=150)
+    degraded = digests.DEGRADED
+    try:
+        cluster.start()
+        kv = skvbc.SkvbcClient(cluster.client(0))
+        cluster.kill(3)
+        n = 0
+        while n < 20 or min(cluster.replicas[r].last_stable
+                            for r in (0, 1, 2)) <= 10:
+            assert kv.write([(b"k%d" % n, b"v")], timeout_ms=60000).success
+            n += 1
+        lagging_at = n
+        sha256_cuda.reset_launches()
+        cluster.restart(3)
+        st = cluster.replicas[3].state_transfer
+        deadline = time.monotonic() + 120
+        while (st.metrics.snapshot()["counters"]["blocks_fetched"]
+               < lagging_at or st.is_fetching):
+            assert time.monotonic() < deadline, "no catch-up"
+            assert kv.write([(b"k%d" % n, b"v")], timeout_ms=60000).success
+            n += 1
+        counters = st.metrics.snapshot()["counters"]
+        assert counters["device_digest_batches"] > 0
+        assert counters["device_digest_failures"] == 0
+        assert sha256_cuda.LAUNCHES["sha256"] \
+            >= counters["device_digest_batches"]
+        assert digests.DEGRADED == degraded
+        h0 = cluster.handlers[0].blockchain
+        h3 = cluster.handlers[3].blockchain
+        head = h3.last_block_id
+        assert head >= 16 and h3.block_digest(head) == h0.block_digest(head)
     finally:
         cluster.stop()

@@ -18,7 +18,9 @@ from tpubft_torch import device
 from tpubft_torch.apps import counter as port_counter
 from tpubft_torch.testing import InProcessCluster as PortCluster
 
-# the planes the port does not carry yet are off on both sides
+# the counter runs keep the durability pipeline off on both sides (the
+# ledger parity tests hold it against the reference); the autotuner is
+# not ported (ROADMAP A.8) and is off on both sides
 PLANES_OFF = dict(durability_pipeline=False, autotune_enabled=False)
 SEED = b"torch-replica-parity"
 
@@ -171,7 +173,6 @@ def test_device_route_on_cpu_tensors_gives_the_same_replies(monkeypatch):
 
 
 _PLANES = {
-    "durability_pipeline": (dict(autotune_enabled=False), "durability"),
     "autotune_enabled": (dict(durability_pipeline=False), "autotuner"),
     "offload_enabled": (dict(PLANES_OFF, offload_enabled=True), "offload"),
     "pre_execution_enabled": (dict(PLANES_OFF, pre_execution_enabled=True),
@@ -189,19 +190,28 @@ def test_unported_plane_refuses_to_start(plane):
             overrides, crypto_backend="cpu"))
 
 
-def test_default_config_refuses_and_names_the_durability_pipeline():
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_default_config_refuses_only_for_the_autotuner(pipeline):
+    """The reference's default config: the autotuner is the one plane
+    left that the port refuses, and the error names it; with it off the
+    replica builds, with the durability pipeline on or off."""
     from tpubft_torch.comm.loopback import LoopbackBus
     from tpubft_torch.consensus.keys import ClusterKeys
     from tpubft_torch.consensus.replica import Replica
     from tpubft_torch.utils.config import ReplicaConfig
-    cfg = ReplicaConfig()
+    cfg = ReplicaConfig(durability_pipeline=pipeline)
     keys = ClusterKeys.generate(cfg, 1, seed=SEED)
     bus = LoopbackBus()
     try:
         with pytest.raises(NotImplementedError,
-                           match="durability pipeline.*ROADMAP A.3"):
+                           match="autotuner.*only plane.*ROADMAP A.8"):
             Replica(cfg, keys.for_node(0), bus.create(0),
                     port_counter.CounterHandler())
+        cfg = ReplicaConfig(durability_pipeline=pipeline,
+                            autotune_enabled=False, crypto_backend="cpu")
+        rep = Replica(cfg, keys.for_node(0), bus.create(0),
+                      port_counter.CounterHandler())
+        assert (rep.durability is not None) == pipeline
     finally:
         bus.shutdown()
 

@@ -786,9 +786,6 @@ class ExecutionLane:
             # pipeline (completion follows its group fsync) or, on the
             # legacy path, straight to the dispatcher
             if pipe is not None:
-                # reached only with the durability pipeline on, which the
-                # port's Replica refuses (ROADMAP A.3, which also brings
-                # the ledger's raw_base)
                 from tpubft_torch.durability import SealedRun
                 from tpubft_torch.kvbc.blockchain import raw_base
                 sync_dbs = []

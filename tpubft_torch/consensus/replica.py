@@ -88,13 +88,10 @@ def _refuse_unported_planes(cfg: ReplicaConfig) -> None:
         _not_ported("pre_execution_enabled", "A.9")
     if cfg.thin_replica_enabled:            # reference replica.py:585
         _not_ported("thin_replica_enabled", "A.9")
-    if cfg.execution_lane and cfg.durability_pipeline:
-        # reference replica.py:723
-        _not_ported("durability_pipeline (the group-commit durability "
-                    "pipeline, on by default)", "A.3")
     if cfg.autotune_enabled:                # reference replica.py:756
         _not_ported("autotune_enabled (the closed-loop autotuner, on by "
-                    "default)", "A.8")
+                    "default: the only plane that still refuses the "
+                    "default config)", "A.8")
 
 
 def share_digest(kind: str, epoch: int, view: int, seq_num: int,
@@ -742,7 +739,7 @@ class Replica(IReceiver):
                 "exec_lane", cfg.execution_drain_timeout_ms / 1e3,
                 busy_fn=lambda: not self.exec_lane.idle(),
                 detail_fn=lambda: {"depth": self.exec_lane.depth})
-        # --- group-commit durability pipeline (tpubft/durability/):
+        # --- group-commit durability pipeline (durability/):
         # the lane seals runs, a dedicated io thread group-commits
         # them across runs (one concatenated apply + one fsync per
         # group) and publishes the durability watermark that gates
@@ -751,10 +748,30 @@ class Replica(IReceiver):
         # the pending-read overlay so sealed-but-unapplied runs stay
         # observable process-wide; reserved pages sharing the ledger
         # DB rebind onto the same view so folded reply pages are too.
-        # Port divergence (reference replica.py:723-744): the pipeline
-        # is not ported (ROADMAP A.3); _refuse_unported_planes refused
-        # it above, so self.durability stays None and the lane applies
-        # each run itself.
+        if cfg.execution_lane and cfg.durability_pipeline:
+            from tpubft_torch.durability import DurabilityPipeline
+            self.durability = DurabilityPipeline(
+                self, group_max=cfg.durability_group_max,
+                window_us=cfg.durability_window_us)
+            _bc = getattr(handler, "blockchain", None)
+            if _bc is not None and hasattr(_bc, "attach_durability"):
+                view = _bc.attach_durability(
+                    self.durability.pending,
+                    drain_fn=self.durability.drain)
+                if self.res_pages.shares_db(view.base):
+                    self.res_pages.rebind(view)
+            # watermark-lag stall probe: busy while sealed runs await
+            # their group fsync; a disk that stops landing groups is
+            # reported with the same budget as the lane's drain barrier
+            self.health.register_probe(
+                "durability", cfg.execution_drain_timeout_ms / 1e3,
+                busy_fn=lambda: self.durability.lag > 0,
+                detail_fn=lambda: {"lag": self.durability.lag,
+                                   "wm": self.durability.watermark})
+            self._diag.register_status(f"replica{self.id}.durability",
+                                       self.durability.render)
+            self._diag.register_status("durability",
+                                       self.durability.render)
 
         # --- closed-loop autotuner (tpubft/tuning/): drives the perf
         # knobs above (flush windows, batch caps, accumulation depth,

@@ -138,6 +138,90 @@ class _SpecOverlayView(IDBClient):
         pass
 
 
+def raw_base(db):
+    """Unwrap a durability `_PendingView` to the raw backing store —
+    THE one idiom for 'give me the db the io thread writes/fsyncs'
+    (the execution lane's sync targets, the test cluster's shared-pages
+    wiring, and this module's own seal path all route through here)."""
+    return db.base if isinstance(db, _PendingView) else db
+
+
+class _PendingView(IDBClient):
+    """Permanently-installed read view over (durability-pending overlay,
+    base db) — the group-commit pipeline's visibility layer. The
+    execution lane seals each run's WriteBatch into the
+    `durability.PendingStore` instead of writing the base; every reader
+    on every thread (execution staging, dispatcher queries, proof
+    serving, thin-replica handlers, pages digests) consults the overlay
+    first, so the LOGICAL head is what the process observes while the
+    io thread lands the bytes behind it. Point gets are lock-free
+    overlay lookups; range scans merge the (bounded, seal-queue-sized)
+    pending keys into the base iteration so versioned reads and digest
+    walks see sealed state too. Writes forward to the base — direct
+    writers (ST staging, metadata, link segments) never ride the
+    pipeline, and the order-sensitive ones take `_pending_barrier`
+    first."""
+
+    def __init__(self, base: IDBClient, store) -> None:
+        self._base = base
+        self._store = store
+
+    @property
+    def base(self) -> IDBClient:
+        return self._base
+
+    def get(self, key: bytes, family: bytes = b"default"):
+        ent = self._store.lookup(fkey(family, key))
+        if ent is not None:
+            return ent[1]
+        return self._base.get(key, family)
+
+    def write(self, batch: WriteBatch) -> None:
+        self._base.write(batch)
+
+    # no sync()/write_group() forwards on purpose: the io thread holds
+    # the RAW base (SealedRun.db) — the group boundary never routes
+    # through the read view, and the fsync-seam lint keeps it that way
+
+    def range_iter(self, family: bytes = b"default", start=None, end=None):
+        from tpubft_torch.storage.interfaces import family_upper_bound
+        lo = fkey(family, start if start is not None else b"")
+        hi = (fkey(family, end) if end is not None
+              else family_upper_bound(family))
+        pend = self._store.snapshot_range(lo, hi)
+        if not pend:
+            yield from self._base.range_iter(family, start, end)
+            return
+        prefix = 1 + len(family)
+        pi = 0
+        for k, v in self._base.range_iter(family, start, end):
+            while pi < len(pend) and pend[pi][0][prefix:] < k:
+                pk, pv = pend[pi]
+                pi += 1
+                if pv is not None:
+                    yield pk[prefix:], pv
+            if pi < len(pend) and pend[pi][0][prefix:] == k:
+                pk, pv = pend[pi]
+                pi += 1
+                if pv is not None:      # pending overwrite wins; a
+                    yield pk[prefix:], pv   # pending delete hides the row
+                continue
+            yield k, v
+        while pi < len(pend):
+            pk, pv = pend[pi]
+            pi += 1
+            if pv is not None:
+                yield pk[prefix:], pv
+
+    def scan_all(self):
+        # whole-state walks (snapshot tools, ST streaming) run on
+        # drained paths — served from the base
+        return self._base.scan_all()
+
+    def close(self) -> None:
+        self._base.close()
+
+
 @dataclass
 class _Accumulation:
     """In-flight execution-run accumulation: the shared mirrored batch
@@ -194,6 +278,75 @@ class BlockStoreMixin:
         # segment loop.
         self._staging_mu = make_lock("kvbc.staging")
         self._accum: Optional[_Accumulation] = None
+        # group-commit durability (durability/): the pending
+        # overlay store + drain hook, installed by attach_durability;
+        # _deferred stages exactly one sealed-run handoff between
+        # end_accumulation(defer=True) and take_deferred() — both on
+        # the executor thread
+        self._pending_store = None
+        self._pending_drain = None
+        self._deferred = None
+
+    # ---- group-commit durability wiring ----
+    def attach_durability(self, store, drain_fn=None) -> "_PendingView":
+        """Install the sealed-not-yet-applied read overlay: self._db
+        becomes a `_PendingView` over (store, base) so every reader
+        observes sealed runs before the io thread lands them.
+        `drain_fn(timeout) -> bool` is the pipeline's flush-and-wait
+        barrier — the direct-write paths call it, because overlay
+        emptiness alone cannot see an applied-but-unsynced group parked
+        for an fsync retry. Must run before any accumulation (replica
+        wiring time); re-attach (a fresh pipeline over a reused ledger)
+        swaps the store."""
+        if self._accum is not None:
+            raise BlockchainError("attach_durability during accumulation")
+        view = _PendingView(raw_base(self._db), store)
+        self._db = view
+        self._pending_store = store
+        self._pending_drain = drain_fn
+        self._deferred = None
+        # cached merkle trees read through the same view
+        for t in getattr(self, "_trees", {}).values():
+            t._db = view
+        return view
+
+    @property
+    def durability_attached(self) -> bool:
+        return self._pending_store is not None
+
+    def take_deferred(self):
+        """(run_no, master batch, raw base db) of the run just sealed
+        by end_accumulation(defer=True) — consumed immediately by the
+        executor thread, which hands it to the durability pipeline."""
+        d, self._deferred = self._deferred, None
+        return d
+
+    def _pending_barrier(self, timeout: float = 30.0) -> None:
+        """Direct-write order barrier: bulk ingest, ST link segments
+        and pruning write the base db straight — they must never
+        interleave with sealed run batches the io thread has not
+        DURABLY retired (a group that applied, failed its fsync and
+        was requeued for retry would re-apply an OLDER head over
+        theirs — overlay emptiness alone cannot see that state, so the
+        barrier is the pipeline's own flush-and-wait). These paths
+        already run behind the replica's drain discipline; the wait
+        here is the loud backstop, and a disk too wedged to drain
+        fails the write rather than corrupting the head."""
+        store = self._pending_store
+        if store is None:
+            return
+        drain = self._pending_drain
+        ok = True
+        if drain is not None:
+            try:
+                ok = bool(drain(timeout))
+            except Exception:  # noqa: BLE001 — treat as not drained
+                ok = False
+        if not ok or not store.wait_empty(
+                timeout if drain is None else 1.0):
+            raise BlockchainError(
+                "durability pipeline failed to drain before a direct "
+                "ledger write (sealed runs still pending)")
 
     # ---- properties ----
     @property
@@ -308,29 +461,52 @@ class BlockStoreMixin:
             self._staging_mu.release()
             raise
 
-    def end_accumulation(self, extra: Optional[WriteBatch] = None) -> int:
+    def end_accumulation(self, extra: Optional[WriteBatch] = None,
+                         defer: bool = False) -> int:
         """Commit the accumulated run in one atomic WriteBatch. `extra`
         ops (e.g. the run's reserved-pages/reply rows when they live in
         the same DB) ride the same batch, making apply atomic across
         ledger and reply state. Returns the new head.
 
-        Writes the BASE db while the staged-read view is still
-        installed: unsynchronized readers (read-only queries on the
-        dispatcher) see the staged values through the overlay right up
-        to the moment the same values are durably in the base — no torn
-        window where a key's new value momentarily vanishes. A failed
-        write rolls the head back (abort semantics) so a retry re-stages
-        from the pre-run state instead of double-appending. (The
-        reference's deferred seal into its group-commit durability
-        pipeline is not ported.)"""
+        Default mode writes the BASE db while the staged-read view is
+        still installed: unsynchronized readers (read-only queries on
+        the dispatcher) see the staged values through the overlay right
+        up to the moment the same values are durably in the base — no
+        torn window where a key's new value momentarily vanishes. A
+        failed write rolls the head back (abort semantics) so a retry
+        re-stages from the pre-run state instead of double-appending.
+
+        `defer=True` (the durability pipeline's seal path, requires
+        attach_durability): nothing touches the base here — the run's
+        overlay merges into the pending store BEFORE the staged view
+        uninstalls (readers hand over from overlay to pending with no
+        torn window, the same invariant as the direct write), and the
+        batch is stashed for `take_deferred()`; the pipeline's io
+        thread applies it as part of a concatenated group write and
+        fsyncs once per group."""
         acc = self._accum
         if acc is None:
             raise BlockchainError("no accumulation active")
+        store = self._pending_store if defer else None
+        if defer and store is None:
+            raise BlockchainError("defer=True without attach_durability")
         try:
             if extra is not None:
                 acc.master.ops.extend(extra.ops)
+                if store is not None:
+                    # extra ops bypassed the mirrored batch: fold them
+                    # into the overlay so the pending store carries the
+                    # WHOLE run (reply pages included), not just the
+                    # staged ledger rows
+                    for k, v in extra.ops:
+                        acc.master._overlay[k] = v
             if acc.master.ops:
-                self._base_db.write(acc.master)
+                if store is not None:
+                    run_no = store.stage(acc.master._overlay)
+                    self._deferred = (run_no, acc.master,
+                                      raw_base(self._base_db))
+                else:
+                    self._base_db.write(acc.master)
         except BaseException:
             self._accum = None
             self._end_staged_reads_locked()
@@ -413,6 +589,7 @@ class BlockStoreMixin:
         start = self._genesis if self._genesis else 1
         if until_block_id <= start:
             return self._genesis
+        self._pending_barrier()   # direct write: sealed runs land first
         wb = WriteBatch()
         for bid in range(start, until_block_id):
             wb.delete(_bid(bid), self._F_BLOCKS)
@@ -524,9 +701,13 @@ class BlockStoreMixin:
             group = [wb for wb in wbs if wb.ops]
             if group:
                 # per-block batches ride the group-commit apply seam:
-                # ONE concatenated engine record per segment on a
-                # backend that overrides write_group
-                self._db.write_group(group)
+                # ONE concatenated engine record / CRC / fsync per
+                # segment on a backend that overrides write_group
+                # instead of re-copying
+                # every block's ops into a master batch here. The
+                # durability pending view exposes no write_group on
+                # purpose — unwrap to the raw base for the group apply.
+                getattr(self._db, "base", self._db).write_group(group)
             if adopted:
                 self._last = adopted[-1][0]
                 if self._genesis == 0:
@@ -541,6 +722,14 @@ class BlockStoreMixin:
             # another thread moves self._db and self._last.
             if not self._acquire_staging_for_link():
                 break                 # speculation open: defer, no link
+            try:
+                # the segment commit writes the base directly: sealed
+                # runs must land before it (ST adoption drained the
+                # pipeline already; this is the loud backstop)
+                self._pending_barrier()
+            except BaseException:
+                self._staging_mu.release()
+                raise
             base_db = self._db
             if nxt is None:
                 nxt = self._last + 1
@@ -657,6 +846,7 @@ class KeyValueBlockchain(BlockStoreMixin):
         with self._staging_mu:
             if self._accum is not None:
                 raise BlockchainError("add_blocks inside accumulation")
+            self._pending_barrier()   # bulk ingest writes the base direct
             first = self._last + 1
             overlay: Dict[bytes, Optional[bytes]] = {}
             view = _StagedReadView(self._db, overlay)

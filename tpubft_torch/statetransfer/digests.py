@@ -6,9 +6,11 @@ A completed window of raw blocks is digested in one batched device call
 runs) once it holds `threshold` blocks, and by hashlib below that. As in
 the reference, a device call that raises a RuntimeError (a failed
 launch, an OPEN breaker) degrades to hashlib with the same digests; here
-each such fallback is counted in `DEGRADED` and logged. Anything else
-(no card at all, `device.NoDevice`; a wrapper refusing its inputs; a
-failed build) raises.
+each such fallback is counted in `DEGRADED` and logged. With
+`degrade=False` (the state-transfer manager of a replica) that
+RuntimeError raises instead. Anything else (no card at all,
+`device.NoDevice`; a wrapper refusing its inputs; a failed build)
+raises.
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ _log = get_logger("statetransfer")
 
 def window_digests(raws: Sequence[bytes], use_device: bool = True,
                    threshold: int = DEVICE_DIGEST_THRESHOLD,
-                   device: Optional[torch.device] = None) -> List[bytes]:
+                   device: Optional[torch.device] = None,
+                   degrade: bool = True) -> List[bytes]:
     """SHA-256 of every raw block of a window, in order."""
     global DEGRADED
     if use_device and len(raws) >= threshold:
@@ -41,6 +44,8 @@ def window_digests(raws: Sequence[bytes], use_device: bool = True,
         except NoDevice:
             raise
         except RuntimeError as exc:   # device loss degrades, not fails
+            if not degrade:
+                raise
             DEGRADED += 1
             _log.warning("state-transfer window of %d blocks digested on "
                          "the host: %s", len(raws), exc)

@@ -8,15 +8,14 @@ so byzantine hooks (drop/mutate) apply to the whole cluster.
 Port of tpubft/testing/cluster.py. It diverges from the reference in
 three places, each marked where it sits:
 
-  * a handler with a blockchain is refused: its state-transfer manager
-    and shared ledger/pages db come with the ledger replica (ROADMAP
-    A.3), so the cluster never imports the ledger for a counter handler;
   * the reconfiguration dispatcher is not wired, and there is no
     operator client (ROADMAP A.9): RECONFIG requests execute to an empty
     reply, as on a reference replica with no dispatcher attached;
-  * replicas are built with the port's config, whose planes that are
-    not ported yet (durability pipeline, autotuner) must be turned off
-    through `cfg_overrides`.
+  * a ledger replica's state transfer is configured from the replica's
+    config, as KvbcReplica configures it;
+  * replicas are built with the port's config, whose autotuner is not
+    ported yet (ROADMAP A.8) and must be turned off through
+    `cfg_overrides`.
 """
 from __future__ import annotations
 
@@ -86,18 +85,17 @@ class InProcessCluster:
         # pipeline's deferred-seal path stays exercised in-process);
         # page persistence across restart then rides the handler db.
         from tpubft_torch.consensus.reserved_pages import ReservedPages
-        if getattr(handler, "blockchain", None) is not None:
-            # Port divergence (reference cluster.py:75-82, 97-104): the
-            # ledger's shared pages db (raw_base) and its state-transfer
-            # manager come with the ledger replica
-            raise NotImplementedError(
-                "InProcessCluster: blockchain-backed handlers need state "
-                "transfer, which is not ported to tpubft_torch yet "
-                "(ROADMAP A.3)")
-        pages = self._pages_dbs.get(r)
-        if pages is None:
-            from tpubft_torch.storage.memorydb import MemoryDB
-            pages = self._pages_dbs[r] = ReservedPages(MemoryDB())
+        from tpubft_torch.kvbc.blockchain import raw_base
+        _bc = getattr(handler, "blockchain", None)
+        _bc_db = raw_base(getattr(_bc, "_db", None)
+                          if _bc is not None else None)
+        if _bc_db is not None:
+            pages = self._pages_dbs[r] = ReservedPages(_bc_db)
+        else:
+            pages = self._pages_dbs.get(r)
+            if pages is None:
+                from tpubft_torch.storage.memorydb import MemoryDB
+                pages = self._pages_dbs[r] = ReservedPages(MemoryDB())
         node_keys = self.keys.for_node(r)
         comm = self.bus.create(r)
         strategy = self.byzantine.get(r)
@@ -108,7 +106,20 @@ class InProcessCluster:
         rep = Replica(cfg, node_keys, comm,
                       handler, storage=storage, aggregator=agg,
                       reserved_pages=pages)
-        # Port divergence (reference cluster.py:121-122): no
+        # KVBC-backed handlers get a state-transfer manager, mirroring
+        # KvbcReplica wiring (handlers expose .blockchain for this).
+        # Port divergence (reference cluster.py:104,
+        # StConfig(retry_timeout_s=0.3) with the default ranges of 16
+        # blocks): state transfer is configured from the replica's
+        # config exactly as KvbcReplica configures it.
+        bc = getattr(handler, "blockchain", None)
+        if bc is not None:
+            from tpubft_torch.statetransfer import StateTransferManager
+            from tpubft_torch.statetransfer.manager import StConfig
+            rep.set_state_transfer(StateTransferManager(
+                r, bc, StConfig.for_replica(cfg),
+                reserved_pages=rep.res_pages, aggregator=agg))
+        # Port divergence (reference cluster.py:106-107): no
         # reconfiguration dispatcher is attached (ROADMAP A.9)
         self.replicas[r] = rep
         return rep
