@@ -7,7 +7,8 @@ builds the CUDA kernels from the sources in the checkout (one nvcc per
 source, all started together) and runs these phases in order, one JSON
 line each; any failure exits non-zero:
 
-  device   the card's name, power limit and SM clock, the builds, and from
+  device   the card's name, power limit and SM clock, the builds (the
+           native BLS engine with g++ among them), and from
            the SHA-256 kernel's SASS (cuobjdump) the opcodes of its longest
            loop (a diagnostic); SHA-256's bound counts the algorithm's
            operations (ops/sha256_cuda.OPS_PER_COMPRESSION), not a build's,
@@ -94,6 +95,28 @@ line each; any failure exits non-zero:
            fallback allowed, no device digest call failed, a full
            64-block window was digested (kept for the kernels line), and
            replica 3's head block digest equals replica 0's;
+  bls_plane
+           BLS certificates on the card: config 2's keys (n=7 f=2 c=0,
+           threshold-bls, threshold 5) and 64 slots through
+           consensus.collectors.CombineBatcher into
+           CudaBlsThresholdVerifier.combine_batch (one flush of 320
+           shares, past the default TPUBFT_MSM_CROSSOVER_K of 128: one
+           bls_msm launch), two slots with a bad share; the same under
+           multisig-bls (all-ones scalars); config 4's shape (n=1000,
+           threshold 667): one CudaBlsThresholdAccumulator combine and
+           one batch_scalar_mul of its 667 shares. Every certificate
+           byte-equal to the native host engine's and verified; launch
+           counts reset just before, read just after; fails if the
+           native engine did not answer;
+  bls_ledger_replica
+           BASELINE config 2 as users deploy it: the ledger_replica
+           phase's cluster at n=7, f=2 with threshold-bls certificates
+           and crypto_backend "cuda"; 100 closed-loop clients until 1,000
+           kvbcbench writes commit, 120 keys read back. Printed: commit
+           latency, requests/s, certificate flushes and how many reached
+           the MSM kernel at the default crossover, verify launches, the
+           native engine's pairing checks and the calls and seconds of
+           its pairing checks, MSMs and decompressions;
   ledger   config 1's categorized KVBC ledger at the kvbcbench block shape
            (800 blocks of 8 versioned keys and one Merkle-proven key) on a
            MemoryDB with use_device_hashing=True, against the same ledger
@@ -131,7 +154,11 @@ line each; any failure exits non-zero:
            SHA-256 timed on a 64-block window that the ledger replica's
            catch-up digested, also with its chain floor, and matched
            against its plain version there, on the digest phase's two
-           windows and on a 1024-node Merkle level;
+           windows and on a 1024-node Merkle level; bls_msm at config 2's
+           flush (S=64, K=5) and config 4's combine (S=1, K=667) and
+           bls_mul at 667 lanes, each against its plain version and the
+           native engine, with the host half's time and the native host
+           Pippenger's as a yardstick;
   done     the script's wall time from the first phase on.
 
 Then the card's name and power limit as nvidia-smi reports them, and last
@@ -243,10 +270,21 @@ def build_all() -> dict:
     thread; -> {library: seconds}. A failed build raises."""
     import threading
 
-    from tpubft_torch.ops import bringup_cuda, ed25519_cuda, sha256_cuda
+    from tpubft_torch.crypto import bls_native
+    from tpubft_torch.ops import (bls12_381_cuda, bringup_cuda, ed25519_cuda,
+                                  sha256_cuda)
+
+    def native():
+        # the host BLS engine, g++ into ops/_build/; the pure-Python
+        # fallback is not enough for this run
+        if not bls_native.available():
+            raise RuntimeError("the native BLS12-381 engine did not load: "
+                               f"{bls_native.load_error}")
     libs = {"ed25519_verify": ed25519_cuda.library,
             "sha256": sha256_cuda.library, "bringup": bringup_cuda.library,
-            "fe_inv": bringup_cuda.fe_inv_library}
+            "fe_inv": bringup_cuda.fe_inv_library,
+            "bls12_381_msm": bls12_381_cuda.library,
+            "bls12381_native": native}
     seconds, errors = {}, []
 
     def build(name, fn):
@@ -280,15 +318,17 @@ def work_bound_ms(ops: int, nbytes: int, sm_clock_mhz: float) -> dict:
 
 
 def reset_all_launches() -> None:
-    from tpubft_torch.ops import bringup_cuda, ed25519_cuda, sha256_cuda
-    for mod in (bringup_cuda, ed25519_cuda, sha256_cuda):
+    from tpubft_torch.ops import (bls12_381_cuda, bringup_cuda, ed25519_cuda,
+                                  sha256_cuda)
+    for mod in (bringup_cuda, ed25519_cuda, sha256_cuda, bls12_381_cuda):
         mod.reset_launches()
 
 
 def all_launches() -> dict:
-    from tpubft_torch.ops import bringup_cuda, ed25519_cuda, sha256_cuda
+    from tpubft_torch.ops import (bls12_381_cuda, bringup_cuda, ed25519_cuda,
+                                  sha256_cuda)
     return {**ed25519_cuda.LAUNCHES, **bringup_cuda.LAUNCHES,
-            **sha256_cuda.LAUNCHES}
+            **sha256_cuda.LAUNCHES, **bls12_381_cuda.LAUNCHES}
 
 
 def phase_ladder(torch, dev, sm_clock_mhz: float) -> dict:
@@ -1288,6 +1328,445 @@ def phase_ledger_replica(torch, dev, clients: int = 100,
     return out
 
 
+BLS_SLOTS = 64
+
+
+def _bls_flush(verifier, jobs, max_batch: int = BLS_SLOTS,
+               flush_us: int = 1_000_000) -> tuple:
+    """The jobs' slots through consensus.collectors.CombineBatcher, as a
+    replica's fused combine plane drains them: one ShareCollector a slot,
+    submitted together; -> (CombineResults by slot, flush sizes). The
+    window is long so that the 64 slots make one flush of
+    combine_batch_max."""
+    import threading
+
+    from tpubft_torch.consensus.collectors import (CombineBatcher,
+                                                   ShareCollector)
+    results, flushes = {}, []
+    done = threading.Event()
+
+    def post(res):
+        results[res.seq_num] = res
+        if len(results) == len(jobs):
+            done.set()
+    cb = CombineBatcher(post, flush_us=flush_us, max_batch=max_batch,
+                        on_flush=flushes.append)
+    try:
+        for seq, (d, shares) in enumerate(jobs):
+            c = ShareCollector(0, seq, "commit", d, verifier)
+            c.shares = dict(shares)
+            cb.submit(c, dict(shares))
+        if not done.wait(600):
+            raise AssertionError(f"{len(results)} of {len(jobs)} slots "
+                                 "came back from the combine plane")
+    finally:
+        cb.stop()
+    return [results[s] for s in range(len(jobs))], flushes
+
+
+def _bls_jobs(signers, threshold: int, slots: int, bad_slots, seed: int):
+    """`slots` certificate slots of `threshold` shares each (signer sets
+    rotating over the cluster); in each of `bad_slots` one share signs
+    another message."""
+    import hashlib
+    n = len(signers)
+    jobs = []
+    for s in range(slots):
+        d = hashlib.sha256(b"bls-slot-%d-%d" % (seed, s)).digest()
+        ids = [(s + i) % n + 1 for i in range(threshold)]
+        shares = {i: signers[i].sign_share(d) for i in ids}
+        if s in bad_slots:
+            shares[ids[1]] = signers[ids[1]].sign_share(b"forged" + d)
+        jobs.append((d, shares))
+    return jobs
+
+
+def phase_bls_plane(torch, dev, slots: int = BLS_SLOTS) -> dict:
+    """BLS certificates on the card through the user entry points:
+    config 2's keys (n=7 f=2 c=0, threshold-bls, threshold 5) and 64
+    slots through CombineBatcher -> CudaBlsThresholdVerifier.combine_batch
+    (320 shares, one fused flush past the default crossover of 128, so
+    one bls_msm launch), two slots with a bad share; the same under
+    multisig-bls (all-ones scalars); config 4's shape (n=1000 f=333,
+    threshold 667): one CudaBlsThresholdAccumulator combine (msm_kernel,
+    S=1) and one batch_scalar_mul of its 667 shares. Every certificate
+    byte-equal to the native host engine's (combine_shares / g1_msm) and
+    verified; launch counts reset just before these paths, read after."""
+    import random
+
+    from tpubft_torch.consensus import keys as K
+    from tpubft_torch.crypto import bls12381 as bls
+    from tpubft_torch.crypto import bls_native
+    from tpubft_torch.crypto import cuda as crypto_cuda
+    from tpubft_torch.crypto import systems
+    from tpubft_torch.crypto.interfaces import Cryptosystem
+    from tpubft_torch.ops import bls12_381 as bops
+    from tpubft_torch.ops import bls12_381_cuda as bc
+    from tpubft_torch.ops.dispatch import device_breaker
+    from tpubft_torch.utils.config import ReplicaConfig
+
+    t_phase = time.monotonic()
+    crossover = crypto_cuda.msm_crossover_k()
+    cfg = ReplicaConfig(f_val=2, c_val=0, threshold_scheme="threshold-bls")
+    t0 = time.monotonic()
+    ck = K.ClusterKeys.generate(cfg, num_clients=0, seed=b"chip-smoke-bls")
+    keygen_s = time.monotonic() - t0
+    system = ck.slow_path_system
+    k = system.threshold_
+    assert (ck.n, ck.threshold_scheme, k) == (7, "threshold-bls", 5), \
+        (ck.n, ck.threshold_scheme, k)
+    signers = {r + 1: ck.threshold_signer(system, r) for r in range(ck.n)}
+    bad_slots = (7, 40)
+    jobs = _bls_jobs(signers, k, slots, bad_slots, seed=2)
+    ms_sys = Cryptosystem("multisig-bls", k, ck.n, seed=b"chip-smoke-ms")
+    ms_signers = {i: ms_sys.create_threshold_signer(i)
+                  for i in range(1, ck.n + 1)}
+    ms_jobs = _bls_jobs(ms_signers, k, slots, bad_slots, seed=3)
+    # config 4's shape
+    t0 = time.monotonic()
+    big = Cryptosystem("threshold-bls", 667, 1000, seed=b"chip-smoke-c4")
+    big_keygen_s = time.monotonic() - t0
+    d4 = bytes(range(32))
+    rng = random.Random(4)
+    ids4 = sorted(rng.sample(range(1, 1001), 667))
+    shares4 = {i: big.create_threshold_signer(i).sign_share(d4)
+               for i in ids4}
+    pts4 = [bls.g1_decompress(shares4[i]) for i in ids4]
+    coeffs4 = bls.lagrange_coeffs_at_zero(ids4)
+
+    thr_v = ck.threshold_verifier(system, backend="cuda")
+    ms_v = crypto_cuda.make_threshold_verifier(
+        "multisig-bls", k, ck.n, ms_sys.public_key, ms_sys.share_public_keys)
+    big_v = crypto_cuda.make_threshold_verifier(
+        "threshold-bls", 667, 1000, big.public_key, big.share_public_keys)
+    host_thr = system.create_threshold_verifier()
+    host_ms = ms_sys.create_threshold_verifier()
+    breaker = device_breaker()
+    breaker.reset()
+    br0 = breaker.snapshot()
+    bls_native.reset_counts()
+    bc.reset_launches()
+    steps = {}
+    t0 = time.monotonic()
+    thr_res, thr_flushes = _bls_flush(thr_v, jobs)
+    steps["threshold_flush_ms"] = (time.monotonic() - t0) * 1e3
+    thr_launches = bc.LAUNCHES["bls_msm"]
+    t0 = time.monotonic()
+    ms_res, ms_flushes = _bls_flush(ms_v, ms_jobs)
+    steps["multisig_flush_ms"] = (time.monotonic() - t0) * 1e3
+    ms_launches = bc.LAUNCHES["bls_msm"] - thr_launches
+    acc = big_v.new_accumulator(False)
+    acc.set_expected_digest(d4)
+    for i in ids4:
+        acc.add(i, shares4[i])
+    t0 = time.monotonic()
+    cert4 = acc.get_full_signed_data()
+    steps["config4_combine_ms"] = (time.monotonic() - t0) * 1e3
+    t0 = time.monotonic()
+    muls = bops.batch_scalar_mul(pts4, coeffs4)
+    steps["config4_scalar_mul_ms"] = (time.monotonic() - t0) * 1e3
+    launches = dict(bc.LAUNCHES)
+    br1 = breaker.snapshot()
+
+    # the host engine's answers, byte for byte
+    def thr_cert(d, shares):
+        ids = sorted(shares)[:k]
+        return bls.g1_compress(bls.combine_shares(
+            ids, [bls.g1_decompress(shares[i]) for i in ids]))
+    problems = []
+    for name, res, jb, host_v in (("threshold", thr_res, jobs, host_thr),
+                                  ("multisig", ms_res, ms_jobs, host_ms)):
+        want = host_v.combine_batch(jb)
+        got = [(r.ok, r.combined_sig, r.bad_shares) for r in res]
+        if got != want:
+            problems.append(f"{name} combine differs from the host classes")
+        for s, ((d, shares), r) in enumerate(zip(jb, res)):
+            if s in bad_slots:
+                if r.ok or len(r.bad_shares) != 1:
+                    problems.append(f"{name} slot {s}: {r.ok} "
+                                    f"{r.bad_shares}")
+                continue
+            ids = sorted(shares)
+            cert = thr_cert(d, shares) if name == "threshold" else \
+                systems.pack_agg_cert(ids, bls.g1_msm(
+                    [bls.g1_decompress(shares[i]) for i in ids],
+                    [1] * len(ids)))
+            if not r.ok or r.combined_sig != cert:
+                problems.append(f"{name} slot {s} certificate differs from "
+                                "the native engine's")
+    certs = [(d, r.combined_sig) for (d, _), r in zip(jobs, thr_res)
+             if r.ok]
+    ms_certs = [(d, r.combined_sig) for (d, _), r in zip(ms_jobs, ms_res)
+                if r.ok]
+    verified = (all(thr_v.verify_batch_certs(certs))
+                and all(ms_v.verify_batch_certs(ms_certs))
+                and thr_v.verify(*certs[0]) and ms_v.verify(*ms_certs[0]))
+    want4 = bls.g1_compress(bls.combine_shares(ids4, pts4))
+    want_muls = [bls.g1_mul(p, c) for p, c in zip(pts4, coeffs4)]
+    out = {"phase": "bls_plane", "n": ck.n, "f": ck.f, "c": ck.c,
+           "scheme": ck.threshold_scheme, "threshold": k, "slots": slots,
+           "shares_per_flush": slots * k, "bad_slots": list(bad_slots),
+           "msm_crossover_k": crossover, "keygen_s": keygen_s,
+           "config4": {"n": 1000, "f": 333, "threshold": 667,
+                       "keygen_s": big_keygen_s},
+           "steps": steps, "launches": launches,
+           "launches_by_path": {"threshold_flush": thr_launches,
+                                "multisig_flush": ms_launches,
+                                "config4_combine": launches["bls_msm"]
+                                - thr_launches - ms_launches,
+                                "config4_scalar_mul": launches["bls_mul"]},
+           "flush_sizes": {"threshold": thr_flushes,
+                           "multisig": ms_flushes},
+           "device_combines": [thr_v.device_combines, ms_v.device_combines,
+                               big_v.device_combines],
+           "host_combines": [thr_v.host_combines, ms_v.host_combines,
+                             big_v.host_combines],
+           "certs_verified": verified,
+           "config4_cert_equal": cert4 == want4,
+           "config4_cert_verified": big_v.verify(d4, cert4),
+           "scalar_mul_mismatches": sum(g != w for g, w in
+                                        zip(muls, want_muls)),
+           "native_pairing_checks": bls_native.COUNTS["pairing_checks"],
+           "native_fallbacks": bls_native.COUNTS["fallbacks"],
+           "breaker": br1["state"],
+           "breaker_failures": br1["failures"] - br0["failures"],
+           "wall_s": time.monotonic() - t_phase}
+    emit(out)
+    if thr_flushes != [slots] or ms_flushes != [slots]:
+        problems.append(f"flushes {thr_flushes} {ms_flushes}, not one of "
+                        f"{slots} slots")
+    if thr_launches != 1 or ms_launches != 1 \
+            or launches["bls_msm"] != 3 or launches["bls_mul"] != 1:
+        problems.append(f"launches {out['launches_by_path']}")
+    if any(out["host_combines"]):
+        problems.append(f"host combines {out['host_combines']}")
+    if not verified or not out["config4_cert_equal"] \
+            or not out["config4_cert_verified"]:
+        problems.append("a certificate differs from the native engine's "
+                        "or did not verify")
+    if out["scalar_mul_mismatches"]:
+        problems.append(f"{out['scalar_mul_mismatches']} scalar-mul "
+                        "results differ from the native engine's")
+    if out["native_fallbacks"]:
+        problems.append(f"{out['native_fallbacks']} pure-Python answers: "
+                        f"the native engine did not load "
+                        f"({bls_native.load_error})")
+    if out["breaker_failures"] or out["breaker"] != "closed":
+        problems.append(f"device breaker {out['breaker']}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    out["segments"] = {
+        "flush": [(ids_pts, bls.lagrange_coeffs_at_zero(ids))
+                  for ids, ids_pts in (
+                      (sorted(sh)[:k], [bls.g1_decompress(sh[i])
+                                        for i in sorted(sh)[:k]])
+                      for _, sh in jobs)],
+        "config4": [(pts4, coeffs4)],
+        "scalar_mul": (pts4, coeffs4)}
+    return out
+
+
+BLS_LEDGER_CONFIG = dict(
+    LEDGER_REPLICA_CONFIG,
+    # BASELINE config 2: simpleKVBC, 7 replicas (f=2), BLS threshold
+    # certificates; everything else as the config-1 ledger replica
+    threshold_scheme="threshold-bls")
+
+
+class _Timed:
+    """While open, each named function attribute of `owner` is wrapped to
+    count its calls and sum their wall time (for where the host time of a
+    phase goes; the native engine's calls run outside the interpreter
+    lock, so their sums may overlap)."""
+
+    def __init__(self, owner, *names):
+        self.owner, self.names = owner, names
+        self.calls = {n: 0 for n in names}
+        self.s = {n: 0.0 for n in names}
+
+    def __enter__(self):
+        import threading
+        lock = threading.Lock()
+        self.real = {n: getattr(self.owner, n) for n in self.names}
+
+        def wrap(name, fn):
+            def timed(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    with lock:
+                        self.calls[name] += 1
+                        self.s[name] += time.perf_counter() - t0
+            return timed
+        for n, fn in self.real.items():
+            setattr(self.owner, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for n, fn in self.real.items():
+            setattr(self.owner, n, fn)
+
+    def snapshot(self) -> dict:
+        return {n: {"calls": self.calls[n], "s": self.s[n]}
+                for n in self.names}
+
+
+def _bls_combines(reps) -> dict:
+    """Certificate combines on the MSM kernel and on the host engine,
+    over every replica's BLS verifiers."""
+    vs = [v for r in reps for v in (r.slow_verifier, r.thr_verifier,
+                                     r.opt_verifier)]
+    return {"device": sum(getattr(v, "device_combines", 0) for v in vs),
+            "host": sum(getattr(v, "host_combines", 0) for v in vs)}
+
+
+def phase_bls_ledger_replica(torch, dev, clients: int = 100,
+                             target: int = 1000, reads: int = 120,
+                             budget_s: float = 120.0) -> dict:
+    """BASELINE config 2 as users deploy it (BASELINE.md:30,
+    "simpleKVBC 7-replica (f=2), BLS threshold"): seven replicas of
+    testing.InProcessCluster (f=2, c=0) with threshold-bls certificates,
+    crypto_backend "cuda", the SKVBC app over the categorized ledger,
+    file WALs, the durability pipeline at its defaults and state transfer
+    as KvbcReplica configures it, the autotuner off (not ported). 100
+    closed-loop clients write kvbcbench blocks until `target` commit,
+    then `reads` keys are read back. Printed: commit latency, requests/s,
+    certificate flushes and how many reached the MSM kernel at the
+    default crossover, verify and MSM launches, the native engine's
+    pairing checks."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from tpubft_torch import testing
+    from tpubft_torch.apps import skvbc
+    from tpubft_torch.consensus.persistent import FilePersistentStorage
+    from tpubft_torch.crypto import bls_native
+    from tpubft_torch.crypto import cuda as crypto_cuda
+    from tpubft_torch.kvbc import KeyValueBlockchain
+    from tpubft_torch.ops import bls12_381_cuda as bc
+    from tpubft_torch.ops import ed25519_cuda as kc
+    from tpubft_torch.ops.dispatch import device_breaker
+    from tpubft_torch.storage import MemoryDB
+    from tpubft_torch.testing import InProcessCluster
+
+    cfg = dict(BLS_LEDGER_CONFIG)
+    t_phase = time.monotonic()
+    wal_dir = tempfile.mkdtemp(prefix="chip-smoke-bls-wal-")
+
+    def storage_factory(r):
+        return FilePersistentStorage(os.path.join(wal_dir, f"r{r}.wal"))
+
+    def handler_factory(_r=None):
+        return skvbc.SkvbcHandler(KeyValueBlockchain(MemoryDB()))
+
+    with _SigManagerCount() as sig:
+        cluster = InProcessCluster(
+            f=2, c=0, num_clients=clients, seed=b"chip-smoke-bls-ledger",
+            handler_factory=handler_factory,
+            storage_factory=storage_factory, cfg_overrides=cfg)
+    rep0 = cluster.replicas[0]
+    emit({"phase": "bls_ledger_replica", "step": "config", "n": cluster.n,
+          "f": 2, "c": 0, "clients": clients, "target_requests": target,
+          "read_back": reads, "budget_s": budget_s, "config": cfg,
+          "scheme": rep0.keys.threshold_scheme,
+          "thr_verifier": type(rep0.thr_verifier).__name__,
+          "msm_crossover_k": crypto_cuda.msm_crossover_k(),
+          "durability_pipeline": rep0.durability is not None,
+          "autotune_enabled": rep0.cfg.autotune_enabled,
+          "crypto_backend": rep0.crypto_backend,
+          "st_config": vars(rep0.state_transfer.cfg),
+          "wal": "FilePersistentStorage"})
+    if rep0.keys.threshold_scheme != "threshold-bls":
+        raise AssertionError(f"scheme {rep0.keys.threshold_scheme}")
+    breaker = device_breaker()
+    problems = []
+    try:
+        cluster.start()
+        bft = [cluster.client(i) for i in range(clients)]
+        for c in bft:
+            c.start()
+        kvs = [skvbc.SkvbcClient(c) for c in bft]
+        writes = _KvbcbenchWrites(kvs, testing.kvbcbench_rows(64),
+                                  timeout_ms=int(budget_s * 1000))
+        loop = _ClosedLoop(clients, writes)
+        reps = list(cluster.replicas.values())
+        breaker.reset()
+        br0 = breaker.snapshot()
+        comb0 = _bls_combines(reps)
+        bls_native.reset_counts()
+        sig.calls = 0
+        reset_all_launches()
+        with _Timed(bls_native, "pairing_check", "g1_msm", "g1_decompress"
+                    ) as native_t, _Timed(
+                crypto_cuda.CudaBlsThresholdVerifier, "combine_batch",
+                "verify_batch_certs") as cert_t:
+            load = loop.run(lambda n: n >= target, budget_s=budget_s)
+        comb = {k: v - comb0[k] for k, v in _bls_combines(reps).items()}
+        load.update({
+            "verify_launches": kc.LAUNCHES["ed25519_verify"],
+            "sigmanager_launches": sig.calls,
+            "bls_msm_launches": bc.LAUNCHES["bls_msm"],
+            "certificate_flushes": comb["device"] + comb["host"],
+            "flushes_on_msm_kernel": comb["device"],
+            "flushes_on_host_engine": comb["host"],
+            "native_pairing_checks": bls_native.COUNTS["pairing_checks"],
+            "native_fallbacks": bls_native.COUNTS["fallbacks"],
+            # host time in the certificate path, all seven replicas
+            "native_calls": native_t.snapshot(),
+            "threshold_verifier_calls": cert_t.snapshot(),
+            "preprepares": cluster.metric(0, "counters",
+                                          "sent_preprepares"),
+            "head_block": rep0.handler.blockchain.last_block_id})
+        emit({"phase": "bls_ledger_replica", "step": "load", **load})
+        if loop.errors or load["committed"] < target:
+            raise AssertionError(f"load: {load['committed']} of {target} "
+                                 f"writes, {loop.errors[:3]}")
+        rng = np.random.default_rng(10)
+        keys = sorted(writes.acked)
+        sample = [keys[i] for i in rng.choice(len(keys), size=min(
+            reads, len(keys)), replace=False)]
+        got = {}
+        for i in range(0, len(sample), 10):
+            got.update(kvs[i // 10 % clients].read(sample[i:i + 10],
+                                                    timeout_ms=60000))
+        wrong = [k for k in sample if got.get(k) != writes.acked[k]]
+        read_back = {"keys": len(sample), "wrong": len(wrong)}
+        heads = [cluster.handlers[r].blockchain for r in range(cluster.n)]
+        settle = time.monotonic() + 30
+        while time.monotonic() < settle and len(
+                {b.last_block_id for b in heads}) != 1:
+            time.sleep(0.05)
+        common = min(b.last_block_id for b in heads)
+        agree = len({b.block_digest(common) for b in heads}) == 1
+        health = device_health(reps, br0)
+    finally:
+        cluster.stop()
+        shutil.rmtree(wal_dir, ignore_errors=True)
+    out = {"phase": "bls_ledger_replica", "load": load,
+           "read_back": read_back, "replicas_agree": agree, **health,
+           "wall_s": time.monotonic() - t_phase}
+    emit(out)
+    if len(sample) < reads or wrong:
+        problems.append(f"read-back: {len(wrong)} of {len(sample)} wrong")
+    if not agree:
+        problems.append("replicas differ at their common head")
+    if load["verify_launches"] < 1:
+        problems.append("the verify kernel was not launched")
+    if load["native_fallbacks"]:
+        problems.append("the native BLS engine did not answer "
+                        f"({bls_native.load_error})")
+    if not load["certificate_flushes"]:
+        problems.append("no BLS certificate was combined")
+    problems += device_health_problems(health)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
+
 def phase_ledger(torch, dev, blocks: int = 800, chunk: int = 64) -> dict:
     """Config 1's categorized ledger at the kvbcbench block shape, device
     hashing against hashlib: ingested in add_blocks chunks of 64 as the
@@ -1585,7 +2064,8 @@ def sha256_rate_row(torch, dev, b: int, sm_clock_mhz: float) -> dict:
 
 
 def phase_kernels(torch, dev, plane, replica, ledger_replica, kernel,
-                  ladder, ledger, digest, sm_clock_mhz) -> dict:
+                  ladder, ledger, digest, bls_plane, bls_ledger,
+                  sm_clock_mhz) -> dict:
     """Every kernel, timed at its path's shape: the verify kernel at one
     PrePrepare drain of 100 signatures, the ladder kernels at the ladder's
     1024 lanes, SHA-256 at a state-transfer window of 64 raw blocks that
@@ -1653,11 +2133,19 @@ def phase_kernels(torch, dev, plane, replica, ledger_replica, kernel,
                 "mismatches_vs_plain")}
     rows.append(sha256_kernel_row(torch, dev, ledger_replica, ledger, digest,
                                   sm_clock_mhz))
+    rows += bls_kernel_rows(torch, dev, bls_plane, bls_ledger, sm_clock_mhz)
     out = {"kernels": rows}
     emit(out)
     bad = [r["name"] for r in rows if r["max_abs_err"]]
     if bad:
         raise AssertionError(f"kernels disagree with plain versions: {bad}")
+    bad = [r["name"] for r in rows if r.get("native_mismatches")]
+    if bad:
+        raise AssertionError(f"kernels disagree with the host engine: {bad}")
+    idle = sorted({r["name"] for r in rows if r["launches"] < 1
+                   and r.get("path", "").startswith(("config", "batch"))})
+    if idle:
+        raise AssertionError(f"kernels not launched on their path: {idle}")
     return out
 
 
@@ -1742,6 +2230,95 @@ def sha256_kernel_row(torch, dev, ledger_replica, ledger, digest,
             "path": "state-transfer digests (ledger replica catch-up)"}
 
 
+def bls_kernel_rows(torch, dev, bls_plane, bls_ledger, sm_clock_mhz) -> list:
+    """The BLS kernels at their paths' shapes: bls_msm at config 2's
+    flush (S=64 segments of K=5 Lagrange-weighted shares, the plane's
+    threshold flush) and at config 4's combine (S=1, K=667), bls_mul at
+    667 lanes. Each against its plain version on the card (mismatching
+    affine points) and the native host engine, its device time by CUDA
+    graph, host issue time, the host half's time apart from the launch,
+    its bound from the field multiplies these scalars need (the cheapest
+    of Straus and Pippenger, signed, with or without the GLV split;
+    `ladder_bound_ms` beside it counts the kernel's own per-lane
+    ladders), and the native host Pippenger's time as a yardstick (no
+    PyTorch call computes a G1 MSM)."""
+    from tpubft_torch.crypto import bls12381 as bls
+    from tpubft_torch.ops import bls12_381 as bops
+    from tpubft_torch.ops import bls12_381_cuda as bc
+    lp = bls_plane["launches_by_path"]
+    seg = bls_plane["segments"]
+    ledger_launches = bls_ledger["load"]["bls_msm_launches"]
+    cases = (
+        ("bls_msm", "S=64 K=5", seg["flush"],
+         {"bls_plane_threshold_flush": lp["threshold_flush"],
+          "bls_plane_multisig_flush": lp["multisig_flush"],
+          "bls_ledger_replica": ledger_launches},
+         "config 2's fused certificate flush (CombineBatcher)"),
+        ("bls_msm", "S=1 K=667", seg["config4"],
+         {"bls_plane_config4_combine": lp["config4_combine"]},
+         "config 4's combine (CudaBlsThresholdAccumulator)"),
+        ("bls_mul", "B=667", seg["scalar_mul"],
+         {"bls_plane_config4_scalar_mul": lp["config4_scalar_mul"]},
+         "batch_scalar_mul of config 4's shares"))
+    rows = []
+    for name, shape, data, by_path, path in cases:
+        reduce = name == "bls_msm"
+        t0 = time.perf_counter()
+        host = (bops.prepare_msm_batch(data) if reduce
+                else bops._prep_msm(*data))
+        prep_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        args = bops.to_tensors(host, dev)
+        torch.cuda.synchronize()
+        copy_ms = (time.perf_counter() - t0) * 1e3
+        kern = bc.msm if reduce else bc.scalar_mul
+        plain = (bops.plain_msm_batch_kernel if reduce
+                 else bops.plain_scalar_mul_kernel)
+
+        def affine(xyz):
+            cols = [c.cpu().numpy() for c in xyz]
+            return [bops._to_affine_host(*(c[:, j] for c in cols))
+                    for j in range(cols[0].shape[1])]
+        got = affine(kern(*args))
+        t0 = time.perf_counter()
+        want_plain = affine(plain(*args))
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        if reduce:
+            native = [bls.g1_msm(p, k) for p, k in data]
+        else:
+            native = [bls.g1_mul(p, k) for p, k in zip(*data)]
+        native_ms = (time.perf_counter() - t0) * 1e3
+        bound = work_bound_ms(*bc.work(host[0], host[3], reduce),
+                              sm_clock_mhz)
+        ladder_muls = bc.ladder_field_muls(host[0], host[3], reduce)
+        ladder = work_bound_ms(ladder_muls * bc.OPS_PER_FIELD_MUL,
+                               bound["bytes"], sm_clock_mhz)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "tpubft_torch/ops/csrc/bls12_381_msm.cu",
+            "replaces": ("tpubft/ops/bls12_381.py:137 (msm_batch_kernel; "
+                         "msm_kernel :46)" if reduce else
+                         "tpubft/ops/bls12_381.py:241 "
+                         "(batch_scalar_mul's kernel)"),
+            "shape": shape, "path": path,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": sum(g != w for g, w in zip(got, want_plain)),
+            "native_mismatches": sum(g != w for g, w in zip(got, native)),
+            "results": len(got), "lanes": int(host[3].size),
+            "ms": graph_ms(lambda: kern(*args), 3, replays=3),
+            "host_ms": cuda_ms(lambda: kern(*args), 3),
+            "host_prep_ms": prep_ms, "copy_in_ms": copy_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "ops": bound["ops"], "bytes": bound["bytes"],
+            "field_muls": bound["ops"] // bc.OPS_PER_FIELD_MUL,
+            "ladder_field_muls": ladder_muls,
+            "ladder_bound_ms": ladder["bound_ms"],
+            "library_ms": None, "native_host_ms": native_ms})
+    return rows
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "tpubft_torch")):
         return fail("the tpubft_torch package is not beside chip_smoke.py")
@@ -1758,11 +2335,13 @@ def main() -> int:
     plane = phase_plane(torch, dev)
     replica = phase_replica(torch, dev)
     ledger_replica = phase_ledger_replica(torch, dev)
+    bls_plane = phase_bls_plane(torch, dev)
+    bls_ledger = phase_bls_ledger_replica(torch, dev)
     ledger = phase_ledger(torch, dev)
     digest = phase_digest(torch, dev, ledger.pop("raws"))
     phase_rate(torch, dev, clock, info["nvidia_smi"])
     phase_kernels(torch, dev, plane, replica, ledger_replica, kernel, ladder,
-                  ledger, digest, clock)
+                  ledger, digest, bls_plane, bls_ledger, clock)
     emit({"phase": "done", "wall_s": time.monotonic() - t_start})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

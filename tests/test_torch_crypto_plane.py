@@ -358,10 +358,17 @@ def test_resolve_threshold_scheme_matches(n, agg):
 
 
 def test_bls_schemes_wait_for_their_slice():
-    with pytest.raises(NotImplementedError):
-        SYS.register_builtin("threshold-bls")
-    with pytest.raises(NotImplementedError):
-        C.make_threshold_verifier("multisig-bls", 3, 4, None, [])
+    """The BLS slice has landed: both schemes register and get their CUDA
+    verifiers (tests/test_torch_bls_systems.py holds them against the
+    reference); "adaptive" still has to be resolved first."""
+    SYS.register_builtin("threshold-bls")
+    SYS.register_builtin("multisig-bls")
+    assert isinstance(C.make_threshold_verifier("multisig-bls", 3, 4, None,
+                                                []),
+                      C.CudaBlsMultisigVerifier)
+    assert isinstance(C.make_threshold_verifier("threshold-bls", 3, 4, None,
+                                                []),
+                      C.CudaBlsThresholdVerifier)
     with pytest.raises(ValueError, match="adaptive"):
         SYS.register_builtin("adaptive")
 

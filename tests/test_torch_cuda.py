@@ -372,3 +372,114 @@ def test_catch_up_window_goes_through_the_sha256_kernel(card):
         assert head >= 16 and h3.block_digest(head) == h0.block_digest(head)
     finally:
         cluster.stop()
+
+
+# ---- BLS12-381 G1: the MSM kernel ----
+
+def _bls_segments(s, k, seed):
+    """s segments of up to k shares with Lagrange coefficients, and in
+    every segment wide enough an identity slot (a None point), a zero
+    scalar and one >= r; odd segments one share narrower (padding)."""
+    import random
+
+    from tpubft_torch.crypto import bls12381 as bls
+    rng = random.Random(seed)
+    base = [bls.g1_mul(bls.G1_GEN, rng.randrange(1, bls.R))
+            for _ in range(min(k, 16))]
+    segs = []
+    for j in range(s):
+        width = k - (j % 2 if k > 1 else 0)
+        pts = [base[(i + j) % len(base)] for i in range(width)]
+        ks = bls.lagrange_coeffs_at_zero(list(range(1, width + 1)))
+        if width >= 4:
+            pts[1] = None
+            ks[2] = 0
+            ks[3] += bls.R
+        segs.append((pts, ks))
+    return segs
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 5), (64, 5), (1, 667),
+                                   (3, 7)])
+def test_bls_msm_kernel_matches_plain_and_host(card, shape):
+    from tpubft_torch.crypto import bls12381 as bls
+    from tpubft_torch.ops import bls12_381 as B
+    from tpubft_torch.ops import bls12_381_cuda as bc
+    segs = _bls_segments(*shape, seed=shape[0] * 1000 + shape[1])
+    args = B.to_tensors(B.prepare_msm_batch(segs), card)
+    before = bc.LAUNCHES["bls_msm"]
+    got = [t.cpu().numpy() for t in B.msm_batch_kernel(*args)]
+    assert bc.LAUNCHES["bls_msm"] == before + 1
+    plain = [t.cpu().numpy() for t in B.plain_msm_batch_kernel(*args)]
+
+    def affine(xyz):
+        return [B._to_affine_host(*(c[:, j] for c in xyz))
+                for j in range(len(segs))]
+    want = [bls.g1_msm([p for p in pts if p is not None],
+                       [x for p, x in zip(pts, ks) if p is not None])
+            for pts, ks in segs]
+    assert affine(got) == affine(plain) == want
+    assert B.msm_batch(segs, device=card) == want
+
+
+def test_bls_scalar_mul_kernel_matches_plain_and_host(card):
+    from tpubft_torch.crypto import bls12381 as bls
+    from tpubft_torch.ops import bls12_381 as B
+    from tpubft_torch.ops import bls12_381_cuda as bc
+    pts, ks = _bls_segments(1, 667, seed=8)[0]
+    args = B.to_tensors(B._prep_msm(pts, ks), card)
+    before = bc.LAUNCHES["bls_mul"]
+    got = [t.cpu().numpy() for t in B.scalar_mul_kernel(*args)]
+    assert bc.LAUNCHES["bls_mul"] == before + 1
+    plain = [t.cpu().numpy() for t in B.plain_scalar_mul_kernel(*args)]
+
+    def affine(xyz):
+        return [B._to_affine_host(*(c[:, i] for c in xyz))
+                for i in range(len(pts))]
+    assert affine(got) == affine(plain)
+    want = [None if p is None else bls.g1_mul(p, x) for p, x in zip(pts, ks)]
+    assert B.batch_scalar_mul(pts, ks, device=card) == want
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "contiguity"])
+def test_bls_wrappers_refuse_bad_cuda_tensors(card, case):
+    from tpubft_torch.ops import bls12_381_cuda as bc
+    words = torch.zeros((8, 2, 4), dtype=torch.int64, device=card)
+    px = torch.zeros((12, 2, 4), dtype=torch.int64, device=card)
+    inf = torch.ones((2, 4), dtype=torch.bool, device=card)
+    bad = {"dtype": px.to(torch.int32), "shape": px[:11].contiguous(),
+           "contiguity": px.transpose(1, 2).contiguous().transpose(1, 2)
+           }[case]
+    before = dict(bc.LAUNCHES)
+    for call in (lambda: bc.msm(words, bad, px, inf),
+                 lambda: bc.scalar_mul(words[:, 0].contiguous(),
+                                       bad[:, 0], px[:, 0].contiguous(),
+                                       inf[0].contiguous())):
+        with pytest.raises(ValueError):
+            call()
+    assert bc.LAUNCHES == before
+
+
+def test_bls_threshold_flush_on_the_card(card, monkeypatch):
+    """CudaBlsThresholdVerifier.combine_batch at the crossover the flush
+    clears (320 shares > 128): one bls_msm launch, certificates equal to
+    the host classes', a bad share identified."""
+    from tpubft_torch.crypto import cuda as CC
+    from tpubft_torch.crypto.interfaces import Cryptosystem
+    from tpubft_torch.ops import bls12_381_cuda as bc
+    cs = Cryptosystem("threshold-bls", 5, 7, seed=b"card-flush")
+    signers = [cs.create_threshold_signer(i) for i in range(1, 8)]
+    jobs = []
+    for j in range(64):
+        d = j.to_bytes(32, "big")
+        jobs.append((d, {i + 1: signers[i].sign_share(d)
+                         for i in range(j % 3, j % 3 + 5)}))
+    first = next(iter(jobs[5][1]))
+    jobs[5][1][first] = signers[first - 1].sign_share(b"other")
+    v = CC.make_threshold_verifier("threshold-bls", 5, 7, cs.public_key,
+                                   cs.share_public_keys)
+    bc.reset_launches()
+    got = v.combine_batch(jobs)
+    assert bc.LAUNCHES["bls_msm"] == 1 and v.device_combines == 1
+    assert got == cs.create_threshold_verifier().combine_batch(jobs)
+    assert [ok for ok, _, _ in got].count(False) == 1

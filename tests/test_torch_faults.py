@@ -218,3 +218,106 @@ def test_fe_inv_wrapper_raises_and_does_not_count(monkeypatch, fault):
     assert (bu.LAUNCHES, bu.FE_INV_LANES) == before
     if fault == "build_error":
         bu.fe_inv_library.cache_clear()     # drop nothing cached by the fault
+
+
+# ---- the BLS combine sites: no host answer at all ----
+
+BLS_SITES = ("bls_threshold_accumulator", "bls_threshold_combine_batch",
+             "bls_multisig_combine_batch")
+
+
+@pytest.fixture(scope="module")
+def bls_systems():
+    return {scheme: I.Cryptosystem(scheme, threshold=3, num_signers=4,
+                                   seed=SEED)
+            for scheme in ("threshold-bls", "multisig-bls")}
+
+
+def _bls_site(name, systems):
+    """-> (the CUDA verifier, a call that combines on the MSM route)."""
+    scheme = "multisig-bls" if "multisig" in name else "threshold-bls"
+    cs = systems[scheme]
+    v = C.make_threshold_verifier(scheme, 3, 4, cs.public_key,
+                                  cs.share_public_keys)
+    d = b"\x09" * 32
+    shares = {i: cs.create_threshold_signer(i).sign_share(d)
+              for i in (1, 2, 3)}
+    if name == "bls_threshold_accumulator":
+        acc = v.new_accumulator(False)
+        for i, s in shares.items():
+            acc.add(i, s)
+        return v, acc.get_full_signed_data
+    return v, lambda: v.combine_batch([(d, shares)])
+
+
+@pytest.mark.parametrize("fault", tuple(FAULTS))
+@pytest.mark.parametrize("site", BLS_SITES)
+def test_bls_combine_site_never_answers_from_the_host(monkeypatch,
+                                                      bls_systems, site,
+                                                      fault):
+    """With the crossover at 1 every combine takes the MSM route; each
+    fault, device loss included, raises out of the combine, and no host
+    combine is counted."""
+    from tpubft_torch.ops import bls12_381 as bls_ops
+    monkeypatch.setenv("TPUBFT_MSM_CROSSOVER_K", "1")
+    v, call = _bls_site(site, bls_systems)
+    if fault == "no_card":
+        _inject(monkeypatch, fault)
+    else:
+        def raising(*_a, **_k):
+            raise FAULTS[fault]
+        monkeypatch.setattr(bls_ops, "msm_batch_kernel", raising)
+    expect = device.NoDevice if fault == "no_card" else \
+        type(FAULTS[fault])
+    with pytest.raises(expect):
+        call()
+    assert v.host_combines == 0 and v.device_combines == 0
+
+
+class _FailingBlsLaunch:
+    """A BLS kernel library whose launches report a CUDA error."""
+
+    @staticmethod
+    def bls_msm_launch(*_args):
+        return 700
+
+    bls_mul_launch = bls_msm_launch
+
+    @staticmethod
+    def bls_error_string(_err):
+        return b"an illegal memory access was encountered"
+
+
+@pytest.mark.parametrize("entry", ["msm", "scalar_mul"])
+@pytest.mark.parametrize("fault", ["cpu_tensor", "build_error",
+                                   "launch_error"])
+def test_bls_wrappers_raise_and_do_not_count(monkeypatch, fault, entry):
+    """A CPU tensor is refused (ops/bls12_381 routes it to the plain
+    version), a failed build raises BuildError and a failed launch
+    RuntimeError; none is answered by the plain version or counted. The
+    build and launch faults stand in for the device check and the stream,
+    as no card is present here."""
+    from tpubft_torch.ops import bls12_381_cuda as bc
+    lanes = (2, 3) if entry == "msm" else (3,)
+    args = (torch.zeros((8,) + lanes, dtype=torch.int64),
+            torch.zeros((12,) + lanes, dtype=torch.int64),
+            torch.zeros((12,) + lanes, dtype=torch.int64),
+            torch.ones(lanes, dtype=torch.bool))
+    if fault != "cpu_tensor":
+        monkeypatch.setattr(bc, "_check", lambda *a: torch.device("cpu"))
+        monkeypatch.setattr(bc, "_stream", lambda _dev: 0)
+    if fault == "build_error":
+        def no_nvcc(*_a, **_k):
+            raise _build.BuildError("nvcc failed building bls12_381_msm")
+        bc.library.cache_clear()
+        monkeypatch.setattr(bc._build, "load", no_nvcc)
+    if fault == "launch_error":
+        monkeypatch.setattr(bc, "library", lambda: _FailingBlsLaunch)
+    expect = {"cpu_tensor": ValueError, "build_error": _build.BuildError,
+              "launch_error": RuntimeError}[fault]
+    before = dict(bc.LAUNCHES)
+    with pytest.raises(expect):
+        getattr(bc, entry)(*args)
+    assert bc.LAUNCHES == before
+    if fault == "build_error":
+        bc.library.cache_clear()

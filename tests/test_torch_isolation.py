@@ -95,3 +95,40 @@ def test_chip_smoke_without_a_card_fails_without_output():
     assert out.returncode != 0
     assert out.stdout == ""
     assert "no card" in out.stderr
+
+
+def _all_port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, dirnames, filenames in os.walk(
+            os.path.join(ROOT, "tpubft_torch")):
+        dirnames[:] = [d for d in dirnames
+                       if d not in ("__pycache__", "_build")]
+        files += [os.path.join(dirpath, f) for f in filenames
+                  if f.endswith((".py", ".cu", ".cuh", ".cpp"))]
+    return sorted(files)
+
+
+@pytest.mark.parametrize("path", _all_port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_port_source_names_the_reference_native_dir(path):
+    with open(path, encoding="utf-8") as f:
+        assert "tpubft/native" not in f.read(), path
+
+
+def test_ctypes_loads_stay_inside_the_port():
+    """ctypes.CDLL is called in ops/_build.py only, on libraries it built
+    under the port's own ops/_build/ from sources under tpubft_torch/; the
+    native BLS engine the port loads is one of them."""
+    callers = [p for p in _all_port_files() if p.endswith(".py")
+               and "CDLL(" in open(p, encoding="utf-8").read().replace(
+                   "ctypes.CDLL:", "").replace("ctypes.CDLL]", "")]
+    assert [os.path.relpath(p, ROOT) for p in callers] == [
+        os.path.join("tpubft_torch", "ops", "_build.py")]
+    from tpubft_torch.crypto import bls_native
+    from tpubft_torch.ops import _build
+    port = os.path.join(ROOT, "tpubft_torch") + os.sep
+    for d in (_build.BUILD_DIR, _build.CSRC, _build.NATIVE):
+        assert os.path.abspath(d).startswith(port), d
+    if bls_native.available():
+        assert os.path.abspath(bls_native._lib._name).startswith(
+            os.path.join(port, "ops", "_build")), bls_native._lib._name

@@ -10,5 +10,8 @@ comm/, testing/), config 1's signature plane (SigManager and the
 multisig-ed25519 cryptosystem down to the CUDA Ed25519 verify kernel,
 ops/csrc/ed25519_verify.cu) and its ledger's hashing path (the
 categorized KVBC ledger and sparse Merkle tree down to the CUDA SHA-256
-kernel, ops/csrc/sha256.cu), plus the bring-up ladder of tools/bringup.py.
+kernel, ops/csrc/sha256.cu), config 2's BLS12-381 certificates (the host
+engine over the port's own native build, threshold-bls and multisig-bls,
+down to the CUDA G1 MSM kernel, ops/csrc/bls12_381_msm.cu), plus the
+bring-up ladder of tools/bringup.py.
 """

@@ -1874,8 +1874,7 @@ class Replica(IReceiver):
     def _agg_weight(self, blob: bytes) -> int:
         """Contributor count of a banked entry, dispatcher-cheap: the
         bitmap prefix for partials, 1 for raw shares."""
-        # reached only with share aggregation, whose multisig-bls keys
-        # the port refuses at key generation (ROADMAP A.5)
+        # reached only with share aggregation (multisig-bls keys)
         from tpubft_torch.crypto.systems import AGG_CERT_LEN
         if len(blob) == AGG_CERT_LEN:
             (bm,) = struct.unpack_from("<Q", blob, 0)

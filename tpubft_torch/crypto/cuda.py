@@ -1,5 +1,5 @@
-"""CUDA-backed crypto plugin implementations (port of the Ed25519 half of
-tpubft/crypto/tpu.py).
+"""CUDA-backed crypto plugin implementations (port of
+tpubft/crypto/tpu.py; its ECDSA routing waits for its slice).
 
 The reference verifies every signature behind its plugin boundaries
 (`IVerifier`, `IThresholdVerifier`); here the same boundaries run on the
@@ -12,7 +12,13 @@ batched Ed25519 kernel (ops/ed25519.py → ops/ed25519_cuda.py):
   * CudaEd25519Verifier         — per-principal IVerifier;
   * CudaMultisigEd25519Verifier — combined-multisig verification, bad-share
                                   identification and the fused cross-slot
-                                  combine as ONE device batch.
+                                  combine as ONE device batch;
+  * CudaBlsThresholdAccumulator / CudaBlsThresholdVerifier /
+    CudaBlsMultisigVerifier     — BLS combines whose Lagrange-weighted
+                                  MSMs (or unweighted sums) run on the G1
+                                  MSM kernel (ops/bls12_381.py ->
+                                  ops/bls12_381_cuda.py), the counterpart
+                                  of fastMultExp (FastMultExp.cpp:27).
 
 A device failure (a RuntimeError from the launch, or an OPEN breaker's
 BreakerOpen) degrades to the host scalar engine at the same places as
@@ -21,16 +27,22 @@ the verifier counts the batch in its `degraded` counter, so a run can
 tell a fallback from a device answer. A missing card
 (`device.NoDevice`), a kernel that does not build (`BuildError`), a
 wrapper refusing its inputs (`ValueError`) and every other error raise.
-The BLS classes and the ECDSA device routing wait for their slices.
+The BLS classes have no host fallback at all: a failed device combine
+raises (below).
 """
 from __future__ import annotations
 
+import os
 import struct
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from tpubft_torch.crypto import bls12381 as bls
 from tpubft_torch.crypto.cpu import require_ported
 from tpubft_torch.crypto.interfaces import IVerifier
-from tpubft_torch.crypto.systems import (MultisigEd25519Verifier,
+from tpubft_torch.crypto.systems import (BlsMultisigVerifier,
+                                         BlsThresholdAccumulator,
+                                         BlsThresholdVerifier,
+                                         MultisigEd25519Verifier,
                                          pack_multisig_vector)
 from tpubft_torch.device import NoDevice
 
@@ -266,17 +278,120 @@ class CudaMultisigEd25519Verifier(MultisigEd25519Verifier):
         return out
 
 
+def msm_crossover_k() -> int:
+    """TPUBFT_MSM_CROSSOVER_K: below it the host combines. The default,
+    128, is the reference's TPU value (tpu.py:368), kept as it is; where
+    the device route overtakes the host on a given card and host is
+    measured by `python -m tpubft_torch.tools.msm_crossover`, per kind of
+    combine (PERF.md)."""
+    return int(os.environ.get("TPUBFT_MSM_CROSSOVER_K", "128"))
+
+
+class CudaBlsThresholdAccumulator(BlsThresholdAccumulator):
+    """BLS accumulator combining on the card: Lagrange coefficients on the
+    host (tiny), the [L_i] share_i MSM on the G1 kernel
+    (ops/bls12_381.combine_shares) — the role of fastMultExp in
+    BlsThresholdAccumulator.cpp:42-56. Below TPUBFT_MSM_CROSSOVER_K the
+    host Pippenger MSM combines, as in the reference.
+
+    Port divergence (reference tpu.py:378): no host fallback. A device
+    combine that fails raises; it never comes back as a host answer."""
+
+    def get_full_signed_data(self) -> bytes:
+        k = self._verifier.threshold
+        crossover = msm_crossover_k()
+        if len(self._shares) < crossover and k < crossover:
+            self._verifier.host_combines += 1
+            return super().get_full_signed_data()
+        from tpubft_torch.ops import bls12_381 as dev
+        ids = sorted(self._shares)[:k]
+        combined = dev.combine_shares(ids, [self._shares[i] for i in ids])
+        self._verifier.device_combines += 1
+        return bls.g1_compress(combined)
+
+
+class CudaBlsThresholdVerifier(BlsThresholdVerifier):
+    """Threshold-BLS verifier whose fused combine folds every slot's
+    Lagrange-weighted MSM into ONE segmented launch of the G1 MSM kernel.
+    `device_combines` / `host_combines` count the combines (fused flushes
+    and accumulator combines) on each side of the crossover."""
+
+    def __init__(self, threshold: int, total: int, master_pk, share_pks):
+        super().__init__(threshold, total, master_pk, share_pks)
+        self.device_combines = 0
+        self.host_combines = 0
+
+    def new_accumulator(self, with_share_verification: bool
+                        ) -> CudaBlsThresholdAccumulator:
+        return CudaBlsThresholdAccumulator(self, with_share_verification)
+
+    def _combine_segments(self, segments, digests=None) -> List:
+        """Every slot's Lagrange-weighted MSM in ONE segmented
+        `bls_msm` launch. Below the crossover the host Pippenger path
+        combines; a fused flush clears the crossover on the SUM of shares
+        (the reference's tpu.py:405-424).
+
+        Port divergences: no offload tier (reference tpu.py:390-398; the
+        port's replica refuses an active offload pool, ROADMAP A.8), so
+        `digests` is unused; no host fallback (reference :422): a failed
+        device combine raises."""
+        del digests
+        total = sum(len(ids) for ids, _ in segments)
+        if total < msm_crossover_k() or not any(ids for ids, _ in segments):
+            self.host_combines += 1
+            return super()._combine_segments(segments)
+        from tpubft_torch.ops import bls12_381 as dev
+        out = dev.combine_shares_batch([(ids, pts) for ids, pts in segments])
+        self.device_combines += 1
+        return out
+
+
+class CudaBlsMultisigVerifier(BlsMultisigVerifier):
+    """Multisig-BLS with the unweighted sums on the card: every segment's
+    sum of shares rides the same segmented MSM kernel the threshold
+    scheme's Lagrange combine uses, with all-ones scalars — a new call
+    shape, not a new kernel. Serves both the fused `combine_batch` flush
+    and `aggregate_partials`. Counters as CudaBlsThresholdVerifier's."""
+
+    def __init__(self, threshold: int, total: int, share_pks):
+        super().__init__(threshold, total, share_pks)
+        self.device_combines = 0
+        self.host_combines = 0
+
+    def _sum_segments(self, segments, meta=None) -> List:
+        """Port divergences: no offload tier (reference tpu.py:446-453;
+        ROADMAP A.8), so `meta` is unused; no host fallback (reference
+        :462): a failed device sum raises."""
+        del meta
+        total = sum(len(pts) for pts in segments)
+        # fused flush: clear the crossover on the SUM across segments
+        if total < msm_crossover_k() or not any(segments):
+            self.host_combines += 1
+            return super()._sum_segments(segments)
+        from tpubft_torch.ops import bls12_381 as dev
+        live = [i for i, pts in enumerate(segments) if pts]
+        sums = dev.msm_batch([(segments[i], [1] * len(segments[i]))
+                              for i in live])
+        out = [None] * len(segments)
+        for i, pt in zip(live, sums):
+            out[i] = pt
+        self.device_combines += 1
+        return out
+
+
 def make_threshold_verifier(type_name: str, threshold: int, total: int,
                             public_key, share_public_keys,
                             min_device_batch: int = 1):
-    """CUDA-flavoured counterpart of Cryptosystem.create_threshold_verifier:
-    same key material, device-backed verification."""
-    del public_key                     # multisig has no master key
+    """CUDA-flavoured counterpart of Cryptosystem.create_threshold_verifier
+    (ThresholdSignaturesTypes.cpp:183): same key material, device-backed
+    verification."""
     if type_name == "multisig-ed25519":
         return CudaMultisigEd25519Verifier(threshold, total,
                                            share_public_keys,
                                            min_device_batch)
-    if type_name in ("threshold-bls", "multisig-bls"):
-        raise NotImplementedError(
-            f"no CUDA backend for {type_name!r} yet (BLS slice)")
+    if type_name == "threshold-bls":
+        return CudaBlsThresholdVerifier(threshold, total, public_key,
+                                        share_public_keys)
+    if type_name == "multisig-bls":
+        return CudaBlsMultisigVerifier(threshold, total, share_public_keys)
     raise ValueError(f"no CUDA backend for cryptosystem {type_name!r}")

@@ -6,6 +6,9 @@ output goes to `ops/_build/` (listed in .gitignore) under a name keyed
 by a hash of the sources and flags, so an edited source rebuilds and
 an unchanged one loads the existing library. A failed build raises
 BuildError; there is no fallback.
+
+`load_host` does the same for the port's host C++ engines (native/),
+with g++ and the flags of the reference's native build (build.py:_FLAGS).
 """
 from __future__ import annotations
 
@@ -18,11 +21,14 @@ import threading
 from typing import Dict, Sequence
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+NATIVE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "native")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v") + ARCH_FLAGS
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-fno-plt")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -49,12 +55,29 @@ def nvcc_path() -> str:
                      "source at first use and need the CUDA toolkit")
 
 
-def _digest(sources: Sequence[str], headers: Sequence[str]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(sources: Sequence[str], headers: Sequence[str],
+            flags: Sequence[str] = NVCC_FLAGS, root: str = CSRC) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for name in list(sources) + list(headers):
-        with open(os.path.join(CSRC, name), "rb") as f:
+        with open(os.path.join(root, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
+
+
+def _compile(name: str, so: str, cmd_head: Sequence[str],
+             paths: Sequence[str]) -> str:
+    """Run the compiler into a temporary file and rename it to `so`;
+    -> the compiler's stderr."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = [*cmd_head, "-o", tmp, *paths]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise BuildError(
+            f"{cmd[0]} failed building {name} ({proc.returncode}):\n"
+            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, so)
+    return proc.stderr.strip()
 
 
 def load(name: str, sources: Sequence[str],
@@ -70,16 +93,29 @@ def load(name: str, sources: Sequence[str],
         return lib
     so = os.path.join(BUILD_DIR, f"lib{name}-{_digest(sources, headers)}.so")
     if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-               *(os.path.join(CSRC, s) for s in sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise BuildError(
-                f"nvcc failed building {name} ({proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-        ptxas_report[name] = proc.stderr.strip()
-        os.replace(tmp, so)
+        ptxas_report[name] = _compile(
+            name, so, [nvcc_path(), *NVCC_FLAGS],
+            [os.path.join(CSRC, s) for s in sources])
+    with _lock:
+        return _loaded.setdefault(name, ctypes.CDLL(so))
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load native/<name>.cpp with g++ into
+    _build/lib<name>-<hash>.so (the reference builds its copy next to
+    the source, the reference native build.py:29-48)."""
+    with _lock:
+        lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    src = f"{name}.cpp"
+    digest = _digest((src,), (), GXX_FLAGS, NATIVE)
+    so = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    if not os.path.exists(so):
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise BuildError(f"g++ not found: native/{src} is built from "
+                             "source at first use")
+        _compile(name, so, [gxx, *GXX_FLAGS], [os.path.join(NATIVE, src)])
     with _lock:
         return _loaded.setdefault(name, ctypes.CDLL(so))
