@@ -8,7 +8,9 @@ source, all started together) and runs these phases in order, one JSON
 line each; any failure exits non-zero:
 
   device   the card's name, power limit and SM clock, the builds (the
-           native BLS engine with g++ among them), and from
+           native BLS engine with g++ among them), each BLS kernel's
+           registers, stack and spill from ptxas (`bls_msm_ptxas`), and
+           from
            the SHA-256 kernel's SASS (cuobjdump) the opcodes of its longest
            loop (a diagnostic); SHA-256's bound counts the algorithm's
            operations (ops/sha256_cuda.OPS_PER_COMPRESSION), not a build's,
@@ -158,7 +160,10 @@ line each; any failure exits non-zero:
            flush (S=64, K=5) and config 4's combine (S=1, K=667) and
            bls_mul at 667 lanes, each against its plain version and the
            native engine, with the host half's time and the native host
-           Pippenger's as a yardstick;
+           Pippenger's as a yardstick, the kernel's own multiplies and
+           its chain floor (the steps of its longest chain at the cycles
+           of this run's clock64 probe, tools/bls_msm_probe.py) beside
+           the bound;
   done     the script's wall time from the first phase on.
 
 Then the card's name and power limit as nvidia-smi reports them, and last
@@ -257,6 +262,10 @@ def phase_device(torch) -> dict:
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "build_s": build_s, "build_wall_s": build_wall_s,
             "ptxas": dict(_build.ptxas_report),
+            # each BLS kernel's and point formula's registers, stack and
+            # spill, as ptxas reported them
+            "bls_msm_ptxas": _build.ptxas_functions(
+                _build.ptxas_report.get("bls12_381_msm", "")),
             "sha256_sass_loop": dict(loop.most_common()),
             "sha256_sass_loop_int32": sha256_cuda.int32_ops(loop),
             "sha256_ops_per_compression": sha256_cuda.OPS_PER_COMPRESSION,
@@ -2238,15 +2247,19 @@ def bls_kernel_rows(torch, dev, bls_plane, bls_ledger, sm_clock_mhz) -> list:
     affine points) and the native host engine, its device time by CUDA
     graph, host issue time, the host half's time apart from the launch,
     its bound from the field multiplies these scalars need (the cheapest
-    of Straus and Pippenger, signed, with or without the GLV split;
-    `ladder_bound_ms` beside it counts the kernel's own per-lane
-    ladders), and the native host Pippenger's time as a yardstick (no
-    PyTorch call computes a G1 MSM)."""
+    of Straus and Pippenger, signed, with or without the GLV split), the
+    kernel's own multiplies (`kernel_field_muls`) and its chain floor:
+    the steps of its longest dependent chain (two products side by side
+    a step) at the cycles that this run's clock64 probe read for the
+    lanes an element the launch took; and the native host Pippenger's
+    time as a yardstick (no PyTorch call computes a G1 MSM)."""
     from tpubft_torch.crypto import bls12381 as bls
     from tpubft_torch.ops import bls12_381 as bops
     from tpubft_torch.ops import bls12_381_cuda as bc
     lp = bls_plane["launches_by_path"]
     seg = bls_plane["segments"]
+    probe = bc.probe(dev, bc.LANES)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     ledger_launches = bls_ledger["load"]["bls_msm_launches"]
     cases = (
         ("bls_msm", "S=64 K=5", seg["flush"],
@@ -2291,9 +2304,8 @@ def bls_kernel_rows(torch, dev, bls_plane, bls_ledger, sm_clock_mhz) -> list:
         native_ms = (time.perf_counter() - t0) * 1e3
         bound = work_bound_ms(*bc.work(host[0], host[3], reduce),
                               sm_clock_mhz)
-        ladder_muls = bc.ladder_field_muls(host[0], host[3], reduce)
-        ladder = work_bound_ms(ladder_muls * bc.OPS_PER_FIELD_MUL,
-                               bound["bytes"], sm_clock_mhz)
+        s, k = host[3].shape if reduce else (host[3].size, 1)
+        counts = bc.kernel_counts(s, k, sms)
         rows.append({
             "name": name, "route": "cuda",
             "source": "tpubft_torch/ops/csrc/bls12_381_msm.cu",
@@ -2313,8 +2325,14 @@ def bls_kernel_rows(torch, dev, bls_plane, bls_ledger, sm_clock_mhz) -> list:
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
             "ops": bound["ops"], "bytes": bound["bytes"],
             "field_muls": bound["ops"] // bc.OPS_PER_FIELD_MUL,
-            "ladder_field_muls": ladder_muls,
-            "ladder_bound_ms": ladder["bound_ms"],
+            "kernel_field_muls": counts["field_muls"],
+            "chain_steps": counts["chain_steps"],
+            "chain_floor_ms": bc.chain_floor_ms(
+                counts["chain_steps"], probe, sm_clock_mhz),
+            "cycles_per_field_mul": probe["cycles_per_field_mul"],
+            "cycles_per_mul_pair": probe["cycles_per_mul_pair"],
+            "cycles_per_dbl": probe["cycles_per_dbl"],
+            "lanes_per_element": bc.LANES, "plan": counts["plan"],
             "library_ms": None, "native_host_ms": native_ms})
     return rows
 

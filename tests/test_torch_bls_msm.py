@@ -31,6 +31,7 @@ from tpubft.crypto import bls12381 as RB
 from tpubft.ops import bls12_381 as RO
 from tpubft_torch import convert, device
 from tpubft_torch.ops import bls12_381 as B
+from tpubft_torch.ops import bls12_381_cuda as bc
 from tpubft_torch.ops import field as F
 
 torch.set_num_threads(1)
@@ -140,26 +141,37 @@ def host_lib(tmp_path_factory):
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     lib = ctypes.CDLL(so)
-    vp = ctypes.c_void_p
-    lib.bls_host_msm.argtypes = [vp] * 7 + [ctypes.c_int, ctypes.c_int]
-    lib.bls_host_mul.argtypes = [vp] * 7 + [ctypes.c_longlong]
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.bls_host_msm.argtypes = [vp] * 7 + [ci] * 4
+    lib.bls_host_field.argtypes = [ci, ci, vp, vp, vp]
+    lib.bls_host_glv.argtypes = [vp, vp]
+    lib.bls_msm_plan.argtypes = [ci] * 4 + [vp]
     return lib
 
 
-def _host_call(fn, arrays, lanes, *dims):
-    """fn over host arrays -> `lanes` affine results."""
+# the card's lanes an element, and one thread an element
+HOST_LANES = sorted({1, bc.LANES})
+LAM = bc.GLV_LAMBDA
+
+
+def _host_msm(lib, arrays, s, k, lanes, sms=132):
+    """The kernel's launch, in the host build -> s affine results."""
     words, px, py, inf = [np.ascontiguousarray(a) for a in arrays]
     inf = inf.astype(np.uint8)
-    out = [np.zeros((12, lanes), np.int64) for _ in range(3)]
-    fn(*(ctypes.c_void_p(a.ctypes.data)
-         for a in (words, px, py, inf, *out)), *dims)
+    out = [np.zeros((12, s), np.int64) for _ in range(3)]
+    assert lib.bls_host_msm(*(ctypes.c_void_p(a.ctypes.data)
+                              for a in (words, px, py, inf, *out)),
+                            s, k, lanes, sms) == 0
     return [B._to_affine_host(out[0][:, j], out[1][:, j], out[2][:, j])
-            for j in range(lanes)]
+            for j in range(s)]
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (1, 5), (3, 7), (2, 130)])
 def test_kernel_arithmetic_on_the_host(host_lib, shape):
+    """The launch on the card's lanes an element: whole segments in a CTA,
+    and (K = 130) pieces with the second launch's sum."""
     s, k = shape
+    lanes = bc.LANES
     pts = _points(min(k, 8), seed=s * 100 + k)
     rng = random.Random(k)
     segments = []
@@ -175,14 +187,154 @@ def test_kernel_arithmetic_on_the_host(host_lib, shape):
         segments[1] = ([pts[0], RB.g1_neg(pts[0])] + segments[1][0][2:],
                        [5, 5] + segments[1][1][2:])
     host = B.prepare_msm_batch(segments)
-    got = _host_call(host_lib.bls_host_msm, host, s, s, k)
-    assert got == [_want(p, ks) for p, ks in segments]
+    assert _host_msm(host_lib, host, s, k, lanes) == \
+        [_want(p, ks) for p, ks in segments]
     muls = [pts[0], pts[0], None] + pts[1:]
     ks = [R - 1, 2, 5] + [rng.randrange(2 * R) for _ in pts[1:]]
-    got = _host_call(host_lib.bls_host_mul, B._prep_msm(muls, ks),
-                     len(muls), len(muls))
-    assert got == [None if p is None else RB.g1_mul(p, x)
-                   for p, x in zip(muls, ks)]
+    assert _host_msm(host_lib, B._prep_msm(muls, ks), len(muls), 1,
+                     lanes) == [None if p is None else RB.g1_mul(p, x)
+                                for p, x in zip(muls, ks)]
+
+
+# scalars at the edges of the signing and the GLV split
+EDGE_SCALARS = {
+    "r-1": R - 1, "r-10": R - 10, "lambda-1": LAM - 1, "lambda": LAM,
+    "lambda+1": LAM + 1, "2^128": 1 << 128,
+    "k2=0": 0x1234_5678_9ABC_DEF0_0FED_CBA9_8765_4321,   # k < lambda
+    "k1=0": 12345 * LAM,                              # k = k2 lambda
+    "(r-1)/2": (R - 1) // 2, "(r+1)/2": (R + 1) // 2, "1": 1, "8": 8,
+    "16": 16}
+
+
+@pytest.mark.parametrize("lanes", HOST_LANES)
+@pytest.mark.parametrize("name", sorted(EDGE_SCALARS))
+def test_kernel_edge_scalars_on_the_host(host_lib, name, lanes):
+    """One edge scalar on a multiply, and in a segment beside P and -P at
+    the same scalar (which cancel) and a random share."""
+    k = EDGE_SCALARS[name]
+    k1, k2, _ = bc.glv_split(k % R)
+    if name == "k2=0":
+        assert k2 == 0
+    if name == "k1=0":
+        assert k1 == 0
+    pts = _points(3, seed=len(name))
+    want = RB.g1_mul(pts[0], k)
+    assert _host_msm(host_lib, B._prep_msm([pts[0]], [k]), 1, 1,
+                     lanes) == [want]
+    seg = ([pts[0], pts[1], RB.g1_neg(pts[1]), pts[2]], [k, k, k, 7])
+    assert _host_msm(host_lib, B.prepare_msm_batch([seg]), 1, 4,
+                     lanes) == [_want(*seg)]
+
+
+@pytest.mark.parametrize("lanes", HOST_LANES)
+def test_kernel_identity_segments_on_the_host(host_lib, lanes):
+    """All-identity segments (None points, zero scalars, padding) beside a
+    live one: the identity, and the live one's sum."""
+    pts = _points(2, seed=9)
+    segs = [([None, None], [3, 4]), (pts, [0, R]), ([pts[0]], [R - 3]),
+            ([], [])]
+    assert _host_msm(host_lib, B.prepare_msm_batch(segs), 4, 2, lanes) == \
+        [None, None, RB.g1_mul(pts[0], R - 3), None]
+
+
+def test_kernel_wide_segment_on_the_host(host_lib):
+    """K = 667 (config 4's combine) at the card's plan: pieces of a CTA,
+    their partial points and the second launch's sum, on one lane an
+    element (the card's lanes take 15 s here; its K = 130 case above runs
+    the same plan on them); and 40 lanes on the card's lanes, planned for
+    4 SMs (10 pieces)."""
+    pts = _points(16, seed=667)
+    rng = random.Random(667)
+    seg_pts = [pts[i % 16] for i in range(667)]
+    ks = RB.lagrange_coeffs_at_zero(sorted(rng.sample(range(1, 1001), 667)))
+    host = B.prepare_msm_batch([(seg_pts, ks)])
+    want = [RB.g1_msm(seg_pts, ks)]
+    assert bc.plan(1, 667, 132)["pps"] > 1
+    assert _host_msm(host_lib, host, 1, 667, 1) == want
+    small = host[0][:, :, :40], host[1][:, :, :40], host[2][:, :, :40], \
+        host[3][:, :40]
+    assert _host_msm(host_lib, small, 1, 40, bc.LANES, sms=4) == \
+        [RB.g1_msm(seg_pts[:40], ks[:40])]
+
+
+@pytest.mark.parametrize("lanes", bc.LANE_CHOICES)
+def test_kernel_field_ops_match_python_ints(host_lib, lanes):
+    """The Montgomery product, sum and difference of the kernel's field,
+    on `lanes` lanes an element (the lookahead's carries between lanes),
+    at loose inputs up to 2p - 1."""
+    rng = random.Random(lanes)
+    two_p = 2 * P
+    vals = [0, 1, P - 1, P, two_p - 1, (1 << 32) - 1, (1 << 352) - 1] + \
+        [rng.randrange(two_p) for _ in range(40)]
+    rinv = pow(1 << 384, -1, P)
+
+    def words(x):
+        return np.array([(x >> (32 * i)) & 0xFFFFFFFF for i in range(12)],
+                        dtype=np.uint32)
+    out = np.zeros(12, np.uint32)
+    for a, b in zip(vals, vals[::-1]):
+        for op, want in ((0, a * b * rinv), (1, a + b), (2, a - b)):
+            wa, wb = words(a), words(b)
+            host_lib.bls_host_field(op, lanes, wa.ctypes.data,
+                                    wb.ctypes.data, out.ctypes.data)
+            got = sum(int(w) << (32 * i) for i, w in enumerate(out))
+            assert got < two_p and got % P == want % P, (op, a, b)
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.integers(min_value=0, max_value=R - 1))
+def test_glv_split_and_digits_rebuild_the_scalar(host_lib, k):
+    """The kernel's prologue (host-built) and its Python mirror: the signed
+    scalar is k1 + k2 lambda with both halves below 2^128 (k1 < lambda),
+    each half is sum d_j 16^j over its digits in [-8, 8)."""
+    kw = np.array([(k >> (32 * i)) & 0xFFFFFFFF for i in range(8)],
+                  dtype=np.uint32)
+    out = np.zeros(19, np.uint32)
+    host_lib.bls_host_glv(kw.ctypes.data, out.ctypes.data)
+    val = [int(x) for x in out]
+
+    def num(ws):
+        return sum(w << (32 * i) for i, w in enumerate(ws))
+    k1, k2, neg = num(val[0:4]), num(val[4:8]), bool(val[8])
+    assert (k1, k2, neg) == bc.glv_split(k)
+    assert k1 < LAM and k2 < 1 << 127
+    assert (R - k if neg else k) == k1 + k2 * LAM
+    assert neg == (k > (R - 1) // 2)
+    for half, kp in ((k1, num(val[9:14])), (k2, num(val[14:19]))):
+        ds = [((kp >> (4 * j)) & 15) - 8 for j in range(bc.DIGITS)]
+        assert ds == bc.digits(half)
+        assert all(-8 <= d < 8 for d in ds)
+        assert sum(d * 16 ** j for j, d in enumerate(ds)) == half
+
+
+def test_endomorphism_is_lambda_on_subgroup_points():
+    """(beta x, y) = [lambda] P on the subgroup, with the beta the kernel
+    holds (csrc BLS_BETA, in Montgomery form) and crypto/bls12381's."""
+    import re
+    from tpubft_torch.crypto import bls12381 as TB
+    with open(os.path.join(CSRC, "bls12_381_msm.cu")) as f:
+        src = f.read()
+    body = re.search(r"BLS_BETA\[NW\] = \{([^}]*)\}", src).group(1)
+    words = [int(w.strip().rstrip("u"), 16) for w in body.split(",")]
+    beta = sum(w << (32 * i) for i, w in enumerate(words)) * \
+        pow(1 << 384, -1, P) % P
+    assert beta == TB._G1_BETA and pow(beta, 3, P) == 1 and beta != 1
+    assert TB._G1_LAMBDA == LAM
+    for pt in _points(4, seed=12) + [RB.G1_GEN]:
+        assert RB.g1_mul(pt, LAM) == (beta * pt[0] % P, pt[1])
+
+
+@pytest.mark.parametrize("shape", [(64, 5), (1, 667), (667, 1), (1, 1),
+                                   (3, 7), (5, 9), (300, 3)])
+def test_plan_matches_the_kernel(host_lib, shape):
+    """ops/bls12_381_cuda.plan, which the counts use, is csrc's bls_plan."""
+    s, k = shape
+    out = np.zeros(7, np.int32)
+    host_lib.bls_msm_plan(s, k, bc.LANES, 132, out.ctypes.data)
+    pl = bc.plan(s, k, 132)
+    assert list(out) == [pl["piece"], pl["spc"], pl["pps"], pl["ctas"],
+                         pl["chains"] * bc.LANES, pl["chains"],
+                         pl["reduce_groups"]]
 
 
 # ---- the plain field and curve ----
@@ -266,8 +418,8 @@ def test_segment_field_muls_small_cases(scalars, muls):
 
 
 def test_field_muls_counts_what_the_function_needs():
-    """Below the kernel's per-lane ladders; identity lanes and zero
-    scalars count nothing; config 2's ids 1..5 (coefficients 5, r - 10,
+    """Below what the kernel runs (kernel_counts: fixed-length chains, the
+    trees); identity lanes and zero scalars count nothing; config 2's ids 1..5 (coefficients 5, r - 10,
     10, r - 5, 1) need a few operations a segment."""
     from tpubft_torch.ops import bls12_381_cuda as bc
     rng = random.Random(3)
@@ -283,7 +435,7 @@ def test_field_muls_counts_what_the_function_needs():
     assert bc.field_muls(words, inf, True) == sum(per_segment)
     assert per_segment[1] < 200
     assert bc.field_muls(words, inf, True) < \
-        bc.ladder_field_muls(words, inf, True) / 4
+        bc.kernel_counts(3, 64, 132)["field_muls"] / 4
     mwords, _, _, minf = B._prep_msm([pts[0]] * 4 + [None], ks[:5])
     assert bc.field_muls(mwords, minf, False) == sum(
         bc.segment_field_muls([k]) for k in ks[:4])

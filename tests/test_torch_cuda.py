@@ -399,6 +399,34 @@ def _bls_segments(s, k, seed):
     return segs
 
 
+def _bls_edge_scalars():
+    """Scalars at the edges of the kernel's signing and GLV split: r - 1,
+    r - 10, lambda - 1, lambda, lambda + 1, 2^128, one with k2 = 0 and one
+    with k1 = 0, (r -+ 1) / 2 and small ones."""
+    from tpubft_torch.crypto import bls12381 as bls
+    from tpubft_torch.ops import bls12_381_cuda as bc
+    lam, r = bc.GLV_LAMBDA, bls.R
+    return [r - 1, r - 10, lam - 1, lam, lam + 1, 1 << 128,
+            0x123456789ABCDEF00FEDCBA987654321, 12345 * lam, (r - 1) // 2,
+            (r + 1) // 2, 1, 8, 16]
+
+
+def _bls_edge_segments():
+    """A segment a edge scalar: P at k, Q and -Q at k (they cancel), a
+    third point at 7; and an all-identity segment."""
+    import random
+
+    from tpubft_torch.crypto import bls12381 as bls
+    rng = random.Random(21)
+    segs = []
+    for k in _bls_edge_scalars():
+        p, q, o = (bls.g1_mul(bls.G1_GEN, rng.randrange(1, bls.R))
+                   for _ in range(3))
+        segs.append(([p, q, bls.g1_neg(q), o], [k, k, k, 7]))
+    segs.append(([None, None, None, None], [1, 2, 3, 4]))
+    return segs
+
+
 @pytest.mark.parametrize("shape", [(1, 1), (1, 5), (64, 5), (1, 667),
                                    (3, 7)])
 def test_bls_msm_kernel_matches_plain_and_host(card, shape):
@@ -414,12 +442,23 @@ def test_bls_msm_kernel_matches_plain_and_host(card, shape):
 
     def affine(xyz):
         return [B._to_affine_host(*(c[:, j] for c in xyz))
-                for j in range(len(segs))]
+                for j in range(xyz[0].shape[1])]
     want = [bls.g1_msm([p for p in pts if p is not None],
                        [x for p, x in zip(pts, ks) if p is not None])
             for pts, ks in segs]
     assert affine(got) == affine(plain) == want
     assert B.msm_batch(segs, device=card) == want
+    if shape == (1, 5):
+        # the edge scalars, one segment each, and an all-identity one
+        edge = _bls_edge_segments()
+        want = [bls.g1_msm([p for p in pts if p is not None],
+                           [x for p, x in zip(pts, ks) if p is not None])
+                for pts, ks in edge]
+        assert want[-1] is None
+        eargs = B.to_tensors(B.prepare_msm_batch(edge), card)
+        got = [t.cpu().numpy() for t in B.msm_batch_kernel(*eargs)]
+        plain = [t.cpu().numpy() for t in B.plain_msm_batch_kernel(*eargs)]
+        assert affine(got) == affine(plain) == want
 
 
 def test_bls_scalar_mul_kernel_matches_plain_and_host(card):
@@ -427,6 +466,10 @@ def test_bls_scalar_mul_kernel_matches_plain_and_host(card):
     from tpubft_torch.ops import bls12_381 as B
     from tpubft_torch.ops import bls12_381_cuda as bc
     pts, ks = _bls_segments(1, 667, seed=8)[0]
+    # the edge scalars on lanes 4.. (lanes 1-3: a None point, a zero
+    # scalar, one >= r)
+    edge = _bls_edge_scalars()
+    ks[4:4 + len(edge)] = edge
     args = B.to_tensors(B._prep_msm(pts, ks), card)
     before = bc.LAUNCHES["bls_mul"]
     got = [t.cpu().numpy() for t in B.scalar_mul_kernel(*args)]

@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -34,6 +35,44 @@ _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 # ptxas's resource report (registers, spills, local memory) per library
 ptxas_report: Dict[str, str] = {}
+
+
+def ptxas_functions(report: str) -> Dict[str, Dict[str, int]]:
+    """A library's ptxas -v report -> {function: {"registers", "stack",
+    "spill_stores", "spill_loads"}} (registers for the kernels only), the
+    names demangled to name<template arguments> where they are templates
+    of integers."""
+    out: Dict[str, Dict[str, int]] = {}
+    entry = props = None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = _demangle(m.group(1))
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = _demangle(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props:
+            out.setdefault(props, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out.setdefault(entry, {})["registers"] = int(m.group(1))
+    return out
+
+
+def _demangle(name: str) -> str:
+    m = re.match(r"_Z\d+([A-Za-z_]\w*?)I((?:Li\d+E)+)E", name)
+    if m:
+        args = re.findall(r"Li(\d+)E", m.group(2))
+        return f"{m.group(1)}<{','.join(args)}>"
+    m = re.match(r"_Z(\d+)", name)
+    return name[m.end():m.end() + int(m.group(1))] if m else name
 
 
 class BuildError(Exception):

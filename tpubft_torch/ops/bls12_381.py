@@ -10,10 +10,12 @@ Split of labor:
   host   — Lagrange coefficients mod r, the kernel inputs (scalar words,
            Montgomery point words, the identity mask), and the affine
            conversion of the projective result;
-  device — the MSM: one ladder lane per (segment, point), a per-segment
-           reduce (ops/csrc/bls12_381_msm.cu, through
-           ops/bls12_381_cuda.py). CPU tensors take the plain versions
-           here, `plain_msm_batch_kernel` and `plain_scalar_mul_kernel`.
+  device — the MSM: each (segment, point) lane's scalar signed and split
+           by GLV into two chains, each a group of four lanes, then a
+           tree a segment (ops/csrc/bls12_381_msm.cu, through
+           ops/bls12_381_cuda.py; the points must lie in the order-r
+           subgroup). CPU tensors take the plain versions here,
+           `plain_msm_batch_kernel` and `plain_scalar_mul_kernel`.
 
 The boundary contract is the reference's: scalars are reduced mod r, a
 None point or a zero scalar contributes the identity, segments of unequal
@@ -182,7 +184,7 @@ def msm_batch_kernel(words, px, py, infinity) -> Tuple[torch.Tensor, ...]:
 
 
 def scalar_mul_kernel(words, px, py, infinity) -> Tuple[torch.Tensor, ...]:
-    """CUDA tensors launch the ladder (ops/bls12_381_cuda.scalar_mul), CPU
+    """CUDA tensors launch the kernel (ops/bls12_381_cuda.scalar_mul), CPU
     tensors take the plain version."""
     if words.device.type == "cuda":
         from tpubft_torch.ops import bls12_381_cuda
@@ -244,8 +246,8 @@ def combine_shares_batch(jobs: Sequence[Tuple[Sequence[int], Sequence]],
 
 def batch_scalar_mul(points: Sequence, scalars: Sequence[int],
                      device: Optional[torch.device] = None) -> List:
-    """[k_i] P_i for each i (no reduction): the MSM kernel's ladder launch
-    alone."""
+    """[k_i] P_i for each i (no reduction): the MSM kernel's launch with
+    one point a segment."""
     n = len(points)
     if n == 0:
         return []

@@ -6,18 +6,23 @@ Contract: `msm(words, px, py, infinity)` takes words int64 (8, S, K),
 px/py int64 (12, S, K) and infinity bool (S, K) on one card and returns
 projective (X, Y, Z), each int64 (12, S) canonical Montgomery words;
 `scalar_mul` takes (8, B), (12, B), (12, B), (B,) and returns (12, B) x 3
-(the ladder launch alone). Built by nvcc at first use (ops/_build.py)
-and bound with ctypes. The wrapper checks device, dtype, shape and
-contiguity, allocates outputs and scratch with torch.empty, launches on
-the caller's current stream, raises if cudaGetLastError reports a failed
-launch, and counts its launches in LAUNCHES (one per call, where the
-kernels are launched, and nowhere else). There is no fallback: CPU
-tensors are refused here and take the plain versions through
-ops/bls12_381.msm_batch_kernel / scalar_mul_kernel.
+(the same launch with S = B segments of one point). Precondition: every
+point lies in the order-r subgroup (the kernel signs each scalar and
+splits it by GLV, which computes [k] P only there); the callers' points
+are shares and keys decompressed with the subgroup check. Built by nvcc
+at first use (ops/_build.py) and bound with ctypes. The wrapper checks
+device, dtype, shape and contiguity, allocates outputs and scratch with
+torch.empty, launches on the caller's current stream, raises if
+cudaGetLastError reports a failed launch, and counts its launches in
+LAUNCHES (one per call, where the kernels are launched, and nowhere
+else). There is no fallback: CPU tensors are refused here and take the
+plain versions through ops/bls12_381.msm_batch_kernel / scalar_mul_kernel.
 
 Also here: the work the function needs for given scalars (`field_muls`,
-`work`), for the bound chip_smoke.py prints, and the work the kernels'
-per-lane ladders actually do (`ladder_field_muls`).
+`work`), for the bound chip_smoke.py prints; the kernel's own design,
+mirrored for its counts (`glv_split`, `digits`, `plan`): the multiplies
+it runs and the steps of its longest chain (`kernel_counts`), which at
+the probe's cycles (`probe`) are its floor (`chain_floor_ms`).
 """
 from __future__ import annotations
 
@@ -36,8 +41,9 @@ LAUNCHES: Dict[str, int] = {"bls_msm": 0, "bls_mul": 0}
 SOURCES = ("bls12_381_msm.cu",)
 
 # Field multiplies of the kernel's formulas (csrc/bls12_381_msm.cu):
-# doubling 8 (6M + 2S), mixed addition on the ladder 11, projective
-# addition in the reduce 12 (multiplications by b3 = 12 are additions).
+# doubling 8 (6M + 2S), projective addition 12; mixed addition of an
+# affine point 11, which the bound's count prices the cheapest additions
+# at (multiplications by b3 = 12 are additions).
 MULS_DBL = 8
 MULS_ADD_MIXED = 11
 MULS_ADD = 12
@@ -45,21 +51,31 @@ MULS_ADD = 12
 # multiply-adds (each IMAD.WIDE counted as two 32-bit operations) and 12
 # low multiplies for m.
 OPS_PER_FIELD_MUL = 2 * (144 + 144) + 12
-REDUCE_THREADS = 128
+
+# The kernel's shape (csrc/bls12_381_msm.cu): a digit of WINDOW bits,
+# DIGITS of them a half-scalar, at most MAX_LANES lanes (two chains each)
+# a CTA, PTW words a partial point.
+WINDOW = 4
+DIGITS = 33
+MAX_LANES = 8
+PTW = 36
+# lanes an element the launches take: the fastest product of the clock64
+# probe on the card (tools/bls_msm_probe.py; PERF.md §6)
+LANES = 4
+LANE_CHOICES = (1, 2, 4)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_LL = ctypes.c_longlong
 
 
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """Build (first use) and bind the kernel library."""
     lib = _build.load("bls12_381_msm", SOURCES)
-    lib.bls_mul_launch.argtypes = [_P] * 7 + [_LL, _P]
-    lib.bls_mul_launch.restype = _I
-    lib.bls_msm_launch.argtypes = [_P] * 10 + [_I, _I, _P]
+    lib.bls_msm_launch.argtypes = [_P] * 8 + [_I] * 3 + [_P]
     lib.bls_msm_launch.restype = _I
+    lib.bls_probe_launch.argtypes = [_I, _I, _P, _P, _P]
+    lib.bls_probe_launch.restype = _I
     lib.bls_error_string.argtypes = [_I]
     lib.bls_error_string.restype = ctypes.c_char_p
     return lib
@@ -99,10 +115,30 @@ def _raise(lib, err: int, what: str) -> None:
                            f"{lib.bls_error_string(err).decode()}")
 
 
+def _launch(words, px, py, infinity, s: int, k: int, lanes: int,
+            what: str) -> Tuple[torch.Tensor, ...]:
+    dev = words.device
+    lib = library()
+    out = [torch.empty((12, s), dtype=torch.int64, device=dev)
+           for _ in range(3)]
+    # the partial points of a segment wider than a CTA: at most one a lane
+    partial = torch.empty(s * k * PTW if k > MAX_LANES else 1,
+                          dtype=torch.int32, device=dev)
+    err = lib.bls_msm_launch(
+        words.data_ptr(), px.data_ptr(), py.data_ptr(), infinity.data_ptr(),
+        *(t.data_ptr() for t in out), partial.data_ptr(), s, k, lanes,
+        _stream(dev))
+    _raise(lib, err, what)
+    LAUNCHES[what] += 1
+    return tuple(out)
+
+
 def msm(words: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
-        infinity: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        infinity: torch.Tensor, lanes: int = LANES
+        ) -> Tuple[torch.Tensor, ...]:
     """S segmented MSMs of K lanes -> (X, Y, Z), each (12, S), on the card
-    (not synchronised)."""
+    (not synchronised). `lanes`: lanes an element, LANES but for the
+    probe's comparison of the designs (tools/bls_msm_probe.py)."""
     if words.dim() != 3:
         raise ValueError(
             f"words must be (8, S, K) (got {tuple(words.shape)})")
@@ -110,44 +146,44 @@ def msm(words: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
     dev = _check(words, px, py, infinity, (s, k))
     if s == 0 or k == 0:
         raise ValueError("msm needs S >= 1 segments of K >= 1 lanes")
-    lib = library()
-    ladder = [torch.empty((12, s * k), dtype=torch.int64, device=dev)
-              for _ in range(3)]
-    out = [torch.empty((12, s), dtype=torch.int64, device=dev)
-           for _ in range(3)]
-    err = lib.bls_msm_launch(
-        words.data_ptr(), px.data_ptr(), py.data_ptr(), infinity.data_ptr(),
-        *(t.data_ptr() for t in ladder), *(t.data_ptr() for t in out), s, k,
-        _stream(dev))
-    _raise(lib, err, "bls_msm")
-    LAUNCHES["bls_msm"] += 1
-    return tuple(out)
+    return _launch(words, px, py, infinity, s, k, lanes, "bls_msm")
 
 
 def scalar_mul(words: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
-               infinity: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+               infinity: torch.Tensor, lanes: int = LANES
+               ) -> Tuple[torch.Tensor, ...]:
     """[k_i] P_i for B lanes -> (X, Y, Z), each (12, B), on the card (not
-    synchronised)."""
+    synchronised): B segments of one point, each lane's two GLV halves
+    summed in its CTA."""
     if words.dim() != 2:
         raise ValueError(f"words must be (8, B) (got {tuple(words.shape)})")
     b = int(words.shape[1])
     dev = _check(words, px, py, infinity, (b,))
     if b == 0:
         raise ValueError("scalar_mul needs B >= 1 lanes")
-    lib = library()
-    out = [torch.empty((12, b), dtype=torch.int64, device=dev)
-           for _ in range(3)]
-    err = lib.bls_mul_launch(
-        words.data_ptr(), px.data_ptr(), py.data_ptr(), infinity.data_ptr(),
-        *(t.data_ptr() for t in out), b, _stream(dev))
-    _raise(lib, err, "bls_mul")
-    LAUNCHES["bls_mul"] += 1
-    return tuple(out)
+    return _launch(words, px, py, infinity, b, 1, lanes, "bls_mul")
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def probe(dev: torch.device, lanes: int, iters: int = 4096) -> dict:
+    """clock64 cycles of one field product, of one step of two products
+    side by side and of one doubling on one group of `lanes` lanes (csrc's
+    bls_probe_kernel: `iters` dependent products, iters / 8 dependent
+    doublings, `iters` dependent steps of two), on the card."""
+    lib = library()
+    stamps = torch.zeros(3, dtype=torch.int64, device=dev)
+    sink = torch.zeros(12, dtype=torch.int32, device=dev)
+    _raise(lib, lib.bls_probe_launch(lanes, iters, stamps.data_ptr(),
+                                     sink.data_ptr(), _stream(dev)),
+           "bls_probe")
+    mul, dbl, pair = stamps.tolist()
+    return {"lanes": lanes, "cycles_per_field_mul": mul / iters,
+            "cycles_per_mul_pair": pair / iters,
+            "cycles_per_dbl": dbl / (iters // 8)}
 
 
 # ---- the work, for the bound ----
@@ -172,37 +208,89 @@ def _lane_scalars(words: np.ndarray, infinity: np.ndarray) -> np.ndarray:
     return ks
 
 
-def _lane_steps(words: np.ndarray, infinity: np.ndarray):
-    """(doublings, mixed additions) each lane's ladder runs: from its
-    scalar's top set bit down, one add per set bit; none on an identity
-    lane."""
-    w = np.asarray(words, dtype=np.uint64).reshape(8, -1)
-    live = ~np.asarray(infinity, dtype=bool).reshape(-1)
-    bits = ((w[:, None, :] >> np.arange(32, dtype=np.uint64)[None, :, None])
-            & np.uint64(1)).reshape(256, -1)[:255]
-    set_rows = bits.astype(bool)
-    top = np.where(set_rows.any(0),
-                   254 - np.argmax(set_rows[::-1], axis=0), -1)
-    dbl = np.where(live, top + 1, 0)
-    add = np.where(live, set_rows.sum(0), 0)
-    return dbl, add
+def glv_split(k: int) -> Tuple[int, int, bool]:
+    """The kernel's scalar prologue: k (< r) -> (k1, k2, negated) with k or
+    r - k (negated), whichever is at most (r - 1) / 2, = k1 + k2
+    GLV_LAMBDA, k1 < GLV_LAMBDA, k2 = its quotient by GLV_LAMBDA."""
+    neg = k > (R - 1) // 2
+    k = R - k if neg else k
+    return k % GLV_LAMBDA, k // GLV_LAMBDA, neg
 
 
-def ladder_field_muls(words: np.ndarray, infinity: np.ndarray,
-                      reduce: bool) -> int:
-    """Field multiplies the kernels themselves run on these inputs: every
-    lane's own ladder, and with `reduce` (the MSM, words (8, S, K)) each
-    segment's K + T - 1 projective additions (T = the reduce's threads).
-    More than the function needs (see `field_muls`)."""
-    dbl, add = _lane_steps(words, infinity)
-    muls = int(dbl.sum()) * MULS_DBL + int(add.sum()) * MULS_ADD_MIXED
-    if reduce:
-        s, k = np.asarray(infinity).shape
-        t = 1
-        while t < k and t < REDUCE_THREADS:
-            t *= 2
-        muls += s * (k + t - 1) * MULS_ADD
-    return muls
+def digits(kh: int) -> List[int]:
+    """The kernel's signed fixed-window recoding of a half-scalar (< 2^128),
+    least significant first: digit j = nibble j of kh + 0x88..8 (DIGITS
+    nibbles), less 8; sum_j d_j 16^j = kh."""
+    kp = kh + sum(8 << (WINDOW * j) for j in range(DIGITS))
+    return [((kp >> (WINDOW * j)) & 15) - 8 for j in range(DIGITS)]
+
+
+# One chain (csrc chain()), the same on every scalar: the endomorphism's
+# product, the table 2P..8P (a doubling at even m, an addition at odd),
+# then 4 doublings a window below the top and one addition a digit. Its
+# field multiplies, and its dependent steps: the formulas run their
+# products in independent pairs (f_mul2), a doubling in STEPS_DBL steps,
+# an addition in STEPS_ADD; the endomorphism's product is one single.
+STEPS_DBL = 4
+STEPS_ADD = 6
+TABLE_DBL, TABLE_ADD = 4, 3
+CHAIN_DBL = TABLE_DBL + (DIGITS - 1) * WINDOW
+CHAIN_ADD = TABLE_ADD + DIGITS
+CHAIN_MULS = 1 + CHAIN_DBL * MULS_DBL + CHAIN_ADD * MULS_ADD
+CHAIN_STEPS = CHAIN_DBL * STEPS_DBL + CHAIN_ADD * STEPS_ADD
+
+
+def plan(s: int, k: int, sms: int) -> dict:
+    """The kernel's launch plan (csrc bls_plan): CTAs of `piece` lanes of
+    one segment, or `spc` whole segments of at most MAX_LANES lanes, as few
+    lanes a CTA as spread the lanes over `sms` SMs; a wider segment is
+    `pps` pieces, summed by a second launch of `reduce_groups` groups."""
+    t = min(max(-(-s * k // max(sms, 1)), 1), MAX_LANES)
+    if k <= MAX_LANES:
+        piece, spc, pps = k, max(1, t // k), 1
+        ctas = -(-s // spc)
+    else:
+        piece, spc = t, 1
+        pps = -(-k // piece)
+        ctas = s * pps
+    return {"piece": piece, "spc": spc, "pps": pps, "ctas": ctas,
+            "chains": spc * 2 * piece,
+            "reduce_groups": min(pps, 2 * MAX_LANES) if pps > 1 else 0}
+
+
+def _depth(n: int) -> int:
+    """Levels of the kernel's tree over n sums."""
+    return max(n - 1, 0).bit_length()
+
+
+def kernel_counts(s: int, k: int, sms: int) -> dict:
+    """What the kernel runs for S segments of K lanes (B multiplies: S = B,
+    K = 1), whatever the scalars: `field_muls`, every chain of every CTA
+    and every addition of the trees and of the second launch (each group
+    adds at each level); `chain_steps`, the paired product steps on its
+    longest dependent path (a chain, a tree level a piece's depth, then
+    one group's additions in the second launch and its tree), beside the
+    chain's one single product."""
+    pl = plan(s, k, sms)
+    width, g = 2 * pl["piece"], pl["reduce_groups"]
+    adds = _depth(width)
+    muls = pl["ctas"] * pl["chains"] * (CHAIN_MULS + adds * MULS_ADD)
+    if g:
+        rounds = -(-pl["pps"] // g)
+        muls += s * g * (rounds + _depth(g)) * MULS_ADD
+        adds += rounds + _depth(g)
+    return {"field_muls": muls, "chain_steps": CHAIN_STEPS + adds * STEPS_ADD,
+            "plan": pl}
+
+
+def chain_floor_ms(chain_steps: int, probed: dict,
+                   sm_clock_mhz: float) -> float:
+    """The least time the kernel's longest dependent chain takes: its
+    paired steps at the probe's cycles a step of two products and its one
+    single product at the probe's cycles a product, at the SM clock."""
+    cycles = (chain_steps * probed["cycles_per_mul_pair"]
+              + probed["cycles_per_field_mul"])
+    return cycles / (sm_clock_mhz * 1e3)
 
 
 def _wnaf(k: int, w: int) -> List[int]:

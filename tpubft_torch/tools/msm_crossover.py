@@ -4,7 +4,8 @@
 
 For each shape, the two routes a CUDA BLS verifier (crypto/cuda.py) can
 take for one combine, timed end to end on the host's clock as the
-verifier calls them (median of `--reps`, after one warm-up call):
+verifier calls them (`--reps` calls after one warm-up call: the median,
+and the minimum and maximum beside it as the spread):
 
   host    below TPUBFT_MSM_CROSSOVER_K: per segment, crypto/bls12381's
           combine_shares (Lagrange coefficients, the native Pippenger
@@ -18,9 +19,10 @@ Families: `threshold_flush`, config 2's fused flushes (S slots of 5
 shares, each slot's ids 5 of 7); `multisig_flush`, the same slots summed
 with all-ones scalars; `threshold_combine`, one combine of K shares (ids
 K of 1.5 K, config 4's at K = 667). One JSON line a shape (total shares,
-both routes' ms, the kernel's launches), then a last line with, for each
-family, the smallest total share count from which the device route was
-faster at every larger shape measured (null if it never was). Exits 1 if
+both routes' median ms and their min and max, the kernel's launches),
+then a last line with, for each family, the smallest total share count
+from which the device route's median was below the host route's at
+every larger shape measured (null if it never was). Exits 1 if
 the two routes disagree on a point or the native engine did not load.
 """
 from __future__ import annotations
@@ -44,14 +46,16 @@ FLUSH_SLOTS = (1, 2, 4, 8, 12, 16, 20, 26, 32, 48, 64)
 COMBINE_SHARES = (5, 16, 32, 64, 96, 128, 192, 256, 384, 512, 667)
 
 
-def _median_ms(fn: Callable[[], object], reps: int):
+def _times_ms(fn: Callable[[], object], reps: int):
+    """-> ((min, median, max) ms of `reps` calls after a warm-up, its
+    result)."""
     out = fn()
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times), out
+    return (min(times), statistics.median(times), max(times)), out
 
 
 def _points(rng: random.Random, n: int) -> List:
@@ -117,11 +121,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     by_family = {}
     bad = 0
     for family, shares, host, device in shapes(random.Random(args.seed)):
-        host_ms, want = _median_ms(host, args.reps)
+        host_ms, want = _times_ms(host, args.reps)
         before = bc.LAUNCHES["bls_msm"]
-        device_ms, got = _median_ms(device, args.reps)
-        row = {"family": family, "shares": shares, "host_ms": host_ms,
-               "device_ms": device_ms,
+        device_ms, got = _times_ms(device, args.reps)
+        row = {"family": family, "shares": shares, "host_ms": host_ms[1],
+               "device_ms": device_ms[1],
+               "host_ms_min_max": [host_ms[0], host_ms[2]],
+               "device_ms_min_max": [device_ms[0], device_ms[2]],
                "launches": bc.LAUNCHES["bls_msm"] - before,
                "mismatches": sum(g != w for g, w in zip(got, want))}
         bad += row["mismatches"]
