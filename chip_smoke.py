@@ -119,6 +119,39 @@ line each; any failure exits non-zero:
            the MSM kernel at the default crossover, verify launches, the
            native engine's pairing checks and the calls and seconds of
            its pairing checks, MSMs and decompressions;
+  ecdsa_plane
+           ECDSA client signatures through the normal entry points:
+           config 1's keys with its 100 client principals signing, a
+           third each, with Ed25519, secp256k1 (config 3's client curve)
+           and P-256 (config 5's); 8 PrePrepares of 100 requests (about
+           3% forged) through BatchVerifier over
+           SigManager(batch_fn=crypto.cuda.verify_batch_mixed) at the
+           default ECDSA crossover (crypto/cuda.CARD_ECDSA_CROSSOVER).
+           Every verdict equals the host scalar engines'; RLC launches
+           and bisection launches per curve (reset just before, read
+           just after), each curve's group launched, nothing
+           degraded, no breaker failure; each PrePrepare's ms; each
+           PrePrepare's ECDSA groups also through the per-item verify
+           kernel (ops/ecdsa.verify_batch), equal to the host engines';
+  ecdsa_ledger_replica
+           BASELINE config 3 as benchmarks/bench_e2e.py:76-86 defines
+           it: 31 replicas (f=10) of the ledger_replica phase's cluster,
+           threshold-bls certificates, secp256k1 clients, the view-change
+           timer at 30 s, the fast-path timeout at 5 s, concurrency 1,
+           crypto_backend "cuda", the autotuner off (not ported), every
+           other setting at its default (device_min_verify_batch 32
+           gates the Ed25519 items; the ECDSA groups ride the RLC kernel
+           from crypto/cuda.ecdsa_crossover's lanes on).
+           16 closed-loop clients write kvbcbench blocks until 300 commit
+           or 150 s pass (then the writes are cut, never the replicas,
+           and the cut printed), then 60 acknowledged keys are read back.
+           Printed: commit latency p50/p90/p99, requests/s, PrePrepares,
+           RLC launches and lanes a launch, the SigManagers'
+           ecdsa_batched_host and degraded counts, certificate flushes,
+           the phase's wall time. Fails unless the RLC kernel was
+           launched, every key reads back its last acknowledged value,
+           the 31 ledgers agree at their common head and nothing
+           degraded;
   ledger   config 1's categorized KVBC ledger at the kvbcbench block shape
            (800 blocks of 8 versioned keys and one Merkle-proven key) on a
            MemoryDB with use_device_hashing=True, against the same ledger
@@ -163,7 +196,16 @@ line each; any failure exits non-zero:
            Pippenger's as a yardstick, the kernel's own multiplies and
            its chain floor (the steps of its longest chain at the cycles
            of this run's clock64 probe, tools/bls_msm_probe.py) beside
-           the bound;
+           the bound; ecdsa_rlc for secp256k1 at the config-3 cluster's
+           median lanes a launch and at B = 128, for P-256 at B = 128,
+           and ecdsa_verify for both curves at B = 128
+           (tools/ecdsa_probe.measure: a seeded corpus with a forged item
+           and two crafted wrap-case lanes), each against its plain
+           version on the card (the fold's value word for word, verdicts
+           and x), with the field products the function needs and the
+           kernel's own beside the bound, and the host engine's time on
+           the same items (scalar.ecdsa_verify_batch) as the yardstick
+           that decides the crossover;
   done     the script's wall time from the first phase on.
 
 Then the card's name and power limit as nvidia-smi reports them, and last
@@ -266,6 +308,8 @@ def phase_device(torch) -> dict:
             # spill, as ptxas reported them
             "bls_msm_ptxas": _build.ptxas_functions(
                 _build.ptxas_report.get("bls12_381_msm", "")),
+            "ecdsa_ptxas": _build.ptxas_functions(
+                _build.ptxas_report.get("ecdsa", "")),
             "sha256_sass_loop": dict(loop.most_common()),
             "sha256_sass_loop_int32": sha256_cuda.int32_ops(loop),
             "sha256_ops_per_compression": sha256_cuda.OPS_PER_COMPRESSION,
@@ -280,8 +324,8 @@ def build_all() -> dict:
     import threading
 
     from tpubft_torch.crypto import bls_native
-    from tpubft_torch.ops import (bls12_381_cuda, bringup_cuda, ed25519_cuda,
-                                  sha256_cuda)
+    from tpubft_torch.ops import (bls12_381_cuda, bringup_cuda, ecdsa_cuda,
+                                  ed25519_cuda, sha256_cuda)
 
     def native():
         # the host BLS engine, g++ into ops/_build/; the pure-Python
@@ -293,6 +337,7 @@ def build_all() -> dict:
             "sha256": sha256_cuda.library, "bringup": bringup_cuda.library,
             "fe_inv": bringup_cuda.fe_inv_library,
             "bls12_381_msm": bls12_381_cuda.library,
+            "ecdsa": ecdsa_cuda.library,
             "bls12381_native": native}
     seconds, errors = {}, []
 
@@ -327,17 +372,20 @@ def work_bound_ms(ops: int, nbytes: int, sm_clock_mhz: float) -> dict:
 
 
 def reset_all_launches() -> None:
-    from tpubft_torch.ops import (bls12_381_cuda, bringup_cuda, ed25519_cuda,
-                                  sha256_cuda)
-    for mod in (bringup_cuda, ed25519_cuda, sha256_cuda, bls12_381_cuda):
+    from tpubft_torch.ops import (bls12_381_cuda, bringup_cuda, ecdsa,
+                                  ecdsa_cuda, ed25519_cuda, sha256_cuda)
+    for mod in (bringup_cuda, ed25519_cuda, sha256_cuda, bls12_381_cuda,
+                ecdsa_cuda):
         mod.reset_launches()
+    ecdsa.reset_counts()
 
 
 def all_launches() -> dict:
-    from tpubft_torch.ops import (bls12_381_cuda, bringup_cuda, ed25519_cuda,
-                                  sha256_cuda)
+    from tpubft_torch.ops import (bls12_381_cuda, bringup_cuda, ecdsa_cuda,
+                                  ed25519_cuda, sha256_cuda)
     return {**ed25519_cuda.LAUNCHES, **bringup_cuda.LAUNCHES,
-            **sha256_cuda.LAUNCHES, **bls12_381_cuda.LAUNCHES}
+            **sha256_cuda.LAUNCHES, **bls12_381_cuda.LAUNCHES,
+            **ecdsa_cuda.LAUNCHES}
 
 
 def phase_ladder(torch, dev, sm_clock_mhz: float) -> dict:
@@ -1776,6 +1824,455 @@ def phase_bls_ledger_replica(torch, dev, clients: int = 100,
 
 
 
+ECDSA_PLANE_SCHEMES = ("ed25519", "ecdsa-secp256k1", "ecdsa-p256")
+CURVE_OF = {"ecdsa-secp256k1": "secp256k1", "ecdsa-p256": "secp256r1"}
+
+
+def _mixed_client_keys(node_keys, schemes: dict, client_pubkeys: dict):
+    """A node's ClusterKeys whose client principals sign with the scheme
+    `schemes` names for each (BASELINE configs 1, 3 and 5 mixed in one
+    SigManager), with those clients' public keys."""
+    import dataclasses
+
+    from tpubft_torch.consensus.keys import ClusterKeys
+
+    class MixedKeys(ClusterKeys):
+        def scheme_of(self, node: int) -> str:
+            return schemes.get(node) or super().scheme_of(node)
+
+    mk = MixedKeys(**{f.name: getattr(node_keys, f.name)
+                      for f in dataclasses.fields(ClusterKeys)})
+    mk.client_pubkeys = dict(client_pubkeys)
+    mk._seed = node_keys._seed
+    return mk
+
+
+class _RlcBatches:
+    """While open, records the lanes of every RLC launch by curve
+    (ops/ecdsa._rlc_launch is wrapped; rlc_verify_batch looks it up at
+    each call)."""
+
+    def __enter__(self):
+        import threading
+
+        from tpubft_torch.ops import ecdsa as ops_ecdsa
+        self._mod = ops_ecdsa
+        self._real = real = ops_ecdsa._rlc_launch
+        self.lanes = {c: [] for c in ops_ecdsa.CURVES}
+        lock = threading.Lock()
+
+        def recorded(curve_name, prep, idxs, dev, bisection=False):
+            with lock:
+                self.lanes[curve_name].append(len(idxs))
+            return real(curve_name, prep, idxs, dev, bisection)
+        ops_ecdsa._rlc_launch = recorded
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._mod._rlc_launch = self._real
+
+
+def phase_ecdsa_plane(torch, dev, num_pp: int = 8) -> dict:
+    """ECDSA client signatures through the normal entry points: config
+    1's keys with its 100 client principals signing, about a third each,
+    with Ed25519, secp256k1 (config 3's client curve) and P-256 (config
+    5's); 8 PrePrepares of 100 requests (about 3% forged) through
+    BatchVerifier over SigManager(batch_fn=crypto.cuda.verify_batch_mixed)
+    at the default ECDSA crossover (crypto/cuda.CARD_ECDSA_CROSSOVER),
+    against the host scalar engines' verdicts; each PrePrepare's ECDSA
+    groups also through the per-item verify kernel
+    (ops/ecdsa.verify_batch, the RLC path's oracle). RLC launches and
+    bisection launches counted per curve (reset just before, read just
+    after)."""
+    import numpy as np
+
+    from tpubft_torch.consensus import keys as K
+    from tpubft_torch.consensus.sig_manager import BatchVerifier, SigManager
+    from tpubft_torch.crypto import cuda as crypto_cuda
+    from tpubft_torch.crypto.cpu import make_signer
+    from tpubft_torch.ops import ecdsa as ops_ecdsa
+    from tpubft_torch.ops import ecdsa_cuda as ec
+    from tpubft_torch.ops import ed25519_cuda as kc
+    from tpubft_torch.ops.dispatch import device_breaker
+    from tpubft_torch.utils.config import ReplicaConfig
+
+    seed = b"chip-smoke-ecdsa-plane"
+    cfg = ReplicaConfig(f_val=1, c_val=0, threshold_scheme="adaptive")
+    ck = K.ClusterKeys.generate(cfg, num_clients=100, seed=seed)
+    first_client = cfg.n_val + cfg.num_ro_replicas
+    clients = list(range(first_client, first_client + 100))
+    schemes = {cl: ECDSA_PLANE_SCHEMES[i % 3]
+               for i, cl in enumerate(clients)}
+    signers = {cl: make_signer(schemes[cl],
+                               seed=K._derive_seed(seed, "client", cl))
+               for cl in clients}
+    mk = _mixed_client_keys(
+        ck.for_node(0), schemes,
+        {**ck.client_pubkeys, **{cl: s.public_bytes()
+                                 for cl, s in signers.items()}})
+    rng = np.random.default_rng(12)
+    batch = cfg.max_num_of_requests_in_batch
+    forged = set(rng.choice(num_pp * batch, size=num_pp * batch * 3 // 100,
+                            replace=False).tolist())
+    t0 = time.monotonic()
+    pps = []
+    for p in range(num_pp):
+        reqs = []
+        for r in range(batch):
+            cl = clients[r % len(clients)]
+            msg = rng.integers(0, 256, 64, dtype=np.uint8).tobytes()
+            sig = signers[cl].sign(msg)
+            if p * batch + r in forged:
+                msg = b"forged" + msg[6:]
+            reqs.append((cl, msg, sig))
+        pps.append(reqs)
+    sign_s = time.monotonic() - t0
+
+    host_sm = SigManager(mk)
+    t_host = time.monotonic()
+    want_pp = [host_sm.verify_batch(reqs) for reqs in pps]
+    host_s = time.monotonic() - t_host
+
+    breaker = device_breaker()
+    breaker.reset()
+    br0 = breaker.snapshot()
+    reset_all_launches()
+    sm = SigManager(mk, batch_fn=crypto_cuda.verify_batch_mixed,
+                    device_min_batch=cfg.device_min_verify_batch)
+    bv = BatchVerifier(sm, batch_size=cfg.verify_batch_size,
+                       flush_us=cfg.verify_batch_flush_us)
+    steps, got_pp = [], []
+    with _RlcBatches() as rlc_lanes:
+        try:
+            for reqs in pps:
+                before = {c: dict(v) for c, v in ops_ecdsa.COUNTS.items()}
+                ed0 = kc.LAUNCHES["ed25519_verify"]
+                t_step = time.monotonic()
+                pend = [bv.submit(cl, m, s) for cl, m, s in reqs]
+                got_pp.append([v.result(timeout=300) for v in pend])
+                steps.append({
+                    "ms": (time.monotonic() - t_step) * 1e3,
+                    "ed25519_launches": kc.LAUNCHES["ed25519_verify"] - ed0,
+                    **{f"{c}_{k}": ops_ecdsa.COUNTS[c][k] - before[c][k]
+                       for c in ops_ecdsa.CURVES
+                       for k in ("rlc_launches", "bisection_launches")}})
+        finally:
+            bv.stop()
+    launches = dict(ec.LAUNCHES)
+    counts = {c: dict(v) for c, v in ops_ecdsa.COUNTS.items()}
+    br1 = breaker.snapshot()
+    # the per-item verify kernel on the same groups: the oracle
+    oracle_mismatches = 0
+    oracle_launches = {c: 0 for c in ops_ecdsa.CURVES}
+    t_o = time.monotonic()
+    for reqs, want in zip(pps, want_pp):
+        for scheme, curve in CURVE_OF.items():
+            idx = [i for i, (cl, _, _) in enumerate(reqs)
+                   if schemes[cl] == scheme]
+            v0 = ec.LAUNCHES["ecdsa_verify"]
+            got = ops_ecdsa.verify_batch(
+                curve, [(reqs[i][1], reqs[i][2], mk.client_pubkeys[reqs[i][0]])
+                        for i in idx])
+            oracle_launches[curve] += ec.LAUNCHES["ecdsa_verify"] - v0
+            oracle_mismatches += sum(bool(g) != want[i]
+                                     for g, i in zip(got, idx))
+    oracle_s = time.monotonic() - t_o
+    counters = sm.metrics.snapshot()["counters"]
+    out = {"phase": "ecdsa_plane", "clients": len(clients),
+           "schemes": {s: sum(v == s for v in schemes.values())
+                       for s in ECDSA_PLANE_SCHEMES},
+           "preprepares": num_pp, "requests_per_pp": batch,
+           "forged": len(forged), "sign_s": sign_s,
+           "host_scalar_s": host_s,
+           "ecdsa_crossover": crypto_cuda.ecdsa_crossover(),
+           "steps": steps, "launches": launches, "counts": counts,
+           "rlc_lanes": rlc_lanes.lanes,
+           "verdicts_equal": got_pp == want_pp,
+           "accepted": sum(map(sum, got_pp)),
+           "verify_oracle_launches": oracle_launches,
+           "verify_oracle_mismatches": oracle_mismatches,
+           "verify_oracle_s": oracle_s,
+           "degraded_verifies": counters["degraded_verifies"],
+           "scalar_fallbacks": counters["scalar_fallbacks"],
+           "ecdsa_batched_host": counters["ecdsa_batched_host"],
+           "breaker": br1["state"],
+           "breaker_failures": br1["failures"] - br0["failures"],
+           "breaker_fast_fails": br1["fast_fails"] - br0["fast_fails"]}
+    emit(out)
+    problems = []
+    if not out["verdicts_equal"]:
+        problems.append("PrePrepare verdicts differ from the host engines")
+    if oracle_mismatches:
+        problems.append(f"{oracle_mismatches} per-item kernel verdicts "
+                        "differ from the host engines")
+    for c in ops_ecdsa.CURVES:
+        if oracle_launches[c] < 1:
+            problems.append(f"the per-item verify kernel was not launched "
+                            f"for {c}")
+        if counts[c]["rlc_launches"] < 1:
+            problems.append(f"no RLC launch for {c}")
+        if counts[c]["bisection_launches"] < 1:
+            problems.append(f"no bisection launch for {c} (forged items)")
+    if launches["ecdsa_rlc"] != sum(c["rlc_launches"]
+                                    for c in counts.values()):
+        problems.append("RLC launches on the card differ from the path's")
+    if out["degraded_verifies"] or out["scalar_fallbacks"] \
+            or out["ecdsa_batched_host"]:
+        problems.append("the device path degraded or fell back to the host")
+    if out["breaker_failures"] or out["breaker_fast_fails"] \
+            or out["breaker"] != "closed":
+        problems.append(f"device breaker {out['breaker']}, "
+                        f"{out['breaker_failures']} failures")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
+ECDSA_LEDGER_CONFIG = dict(
+    LEDGER_REPLICA_CONFIG,
+    # BASELINE config 3 as benchmarks/bench_e2e.py:76-86 defines it:
+    # simpleKVBC, 31 replicas (f=10), BLS threshold certificates,
+    # secp256k1 client signatures, and its three overrides
+    threshold_scheme="threshold-bls", client_sig_scheme="ecdsa-secp256k1",
+    view_change_timer_ms=30000, fast_path_timeout_ms=5000,
+    concurrency_level=1)
+
+
+def phase_ecdsa_ledger_replica(torch, dev, clients: int = 16,
+                               target: int = 300, reads: int = 60,
+                               budget_s: float = 150.0, f: int = 10
+                               ) -> dict:
+    """BASELINE config 3 as the reference runs it (benchmarks/bench_e2e.py
+    CONFIGS[3], recorded in process with 16 clients,
+    benchmarks/RESULTS.md:78): 31 replicas of testing.InProcessCluster
+    (f=10, c=0), threshold-bls certificates, secp256k1 clients,
+    crypto_backend "cuda", the SKVBC app over the categorized ledger,
+    file WALs, the durability pipeline and state transfer at their
+    defaults, the autotuner off (not ported). 16 closed-loop clients
+    write kvbcbench blocks until `target` commit or `budget_s` passes
+    (then the writes are cut, never the replicas, and the cut printed),
+    then `reads` acknowledged keys are read back. Printed: commit
+    latency, requests/s, PrePrepares, RLC launches and lanes a launch,
+    the SigManagers' ecdsa_batched_host and degraded_verifies,
+    certificate flushes, the phase's wall time."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from tpubft_torch import testing
+    from tpubft_torch.apps import skvbc
+    from tpubft_torch.consensus.persistent import FilePersistentStorage
+    from tpubft_torch.crypto import cuda as crypto_cuda
+    from tpubft_torch.kvbc import KeyValueBlockchain
+    from tpubft_torch.ops import ecdsa as ops_ecdsa
+    from tpubft_torch.ops import ecdsa_cuda as ec
+    from tpubft_torch.ops import ed25519_cuda as kc
+    from tpubft_torch.ops.dispatch import device_breaker
+    from tpubft_torch.storage import MemoryDB
+    from tpubft_torch.testing import InProcessCluster
+
+    cfg = dict(ECDSA_LEDGER_CONFIG)
+    t_phase = time.monotonic()
+    wal_dir = tempfile.mkdtemp(prefix="chip-smoke-ecdsa-wal-")
+
+    def storage_factory(r):
+        return FilePersistentStorage(os.path.join(wal_dir, f"r{r}.wal"))
+
+    def handler_factory(_r=None):
+        return skvbc.SkvbcHandler(KeyValueBlockchain(MemoryDB()))
+
+    cluster = InProcessCluster(
+        f=f, c=0, num_clients=clients, seed=b"chip-smoke-ecdsa-ledger",
+        handler_factory=handler_factory, storage_factory=storage_factory,
+        cfg_overrides=cfg)
+    rep0 = cluster.replicas[0]
+    emit({"phase": "ecdsa_ledger_replica", "step": "config", "n": cluster.n,
+          "f": f, "c": 0, "clients": clients, "target_requests": target,
+          "read_back": reads, "budget_s": budget_s, "config": cfg,
+          "scheme": rep0.keys.threshold_scheme,
+          "client_scheme": rep0.keys.client_sig_scheme,
+          "ecdsa_crossover": crypto_cuda.ecdsa_crossover(),
+          "durability_pipeline": rep0.durability is not None,
+          "crypto_backend": rep0.crypto_backend,
+          "setup_s": time.monotonic() - t_phase})
+    if cluster.n != 3 * f + 1 \
+            or rep0.keys.client_sig_scheme != "ecdsa-secp256k1":
+        raise AssertionError(f"n={cluster.n}, clients "
+                             f"{rep0.keys.client_sig_scheme}")
+    breaker = device_breaker()
+    problems = []
+    try:
+        cluster.start()
+        bft = [cluster.client(i) for i in range(clients)]
+        for c in bft:
+            c.start()
+        kvs = [skvbc.SkvbcClient(c) for c in bft]
+        writes = _KvbcbenchWrites(kvs, testing.kvbcbench_rows(64),
+                                  timeout_ms=int(budget_s * 1000))
+        loop = _ClosedLoop(clients, writes)
+        reps = list(cluster.replicas.values())
+        breaker.reset()
+        br0 = breaker.snapshot()
+        comb0 = _bls_combines(reps)
+        host0 = sum(r.sig.ecdsa_batched_host.value for r in reps)
+        reset_all_launches()
+        with _RlcBatches() as rlc_lanes:
+            load = loop.run(lambda n: n >= target, budget_s=budget_s)
+        comb = {k: v - comb0[k] for k, v in _bls_combines(reps).items()}
+        lanes = rlc_lanes.lanes["secp256k1"]
+        load.update({
+            "rlc_launches": ec.LAUNCHES["ecdsa_rlc"],
+            "rlc_bisection_launches":
+                ops_ecdsa.COUNTS["secp256k1"]["bisection_launches"],
+            "rlc_lanes_per_launch": (sum(lanes) / len(lanes)
+                                     if lanes else 0.0),
+            "rlc_median_lanes": (statistics.median_low(lanes)
+                                 if lanes else 0),
+            "rlc_lanes_max": max(lanes, default=0),
+            "verify_launches": kc.LAUNCHES["ed25519_verify"],
+            "ecdsa_batched_host": sum(r.sig.ecdsa_batched_host.value
+                                      for r in reps) - host0,
+            "certificate_flushes": comb["device"] + comb["host"],
+            "flushes_on_msm_kernel": comb["device"],
+            "preprepares": cluster.metric(0, "counters",
+                                          "sent_preprepares"),
+            "head_block": rep0.handler.blockchain.last_block_id})
+        if load["committed"] < target:
+            load["cut"] = {"target": target, "committed": load["committed"],
+                           "reason": f"{budget_s} s budget"}
+        emit({"phase": "ecdsa_ledger_replica", "step": "load", **load})
+        if loop.errors or load["committed"] < 1:
+            raise AssertionError(f"load: {load['committed']} writes, "
+                                 f"{loop.errors[:3]}")
+        rng = np.random.default_rng(13)
+        keys = sorted(writes.acked)
+        sample = [keys[i] for i in rng.choice(len(keys), size=min(
+            reads, len(keys)), replace=False)]
+        got = {}
+        for i in range(0, len(sample), 10):
+            got.update(kvs[i // 10 % clients].read(sample[i:i + 10],
+                                                    timeout_ms=60000))
+        wrong = [k for k in sample if got.get(k) != writes.acked[k]]
+        read_back = {"keys": len(sample), "wrong": len(wrong)}
+        heads = [cluster.handlers[r].blockchain for r in range(cluster.n)]
+        settle = time.monotonic() + 30
+        while time.monotonic() < settle and len(
+                {b.last_block_id for b in heads}) != 1:
+            time.sleep(0.05)
+        common = min(b.last_block_id for b in heads)
+        agree = len({b.block_digest(common) for b in heads}) == 1
+        health = device_health(reps, br0)
+    finally:
+        cluster.stop()
+        shutil.rmtree(wal_dir, ignore_errors=True)
+    out = {"phase": "ecdsa_ledger_replica", "load": load,
+           "rlc_lanes": lanes, "read_back": read_back,
+           "replicas_agree": agree, "common_head": common, **health,
+           "wall_s": time.monotonic() - t_phase}
+    emit(out)
+    if len(sample) < min(reads, load["committed"]) or wrong:
+        problems.append(f"read-back: {len(wrong)} of {len(sample)} wrong")
+    if not agree:
+        problems.append("replicas differ at their common head")
+    if load["rlc_launches"] < 1:
+        problems.append("the RLC kernel was not launched")
+    problems += device_health_problems(health)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
+def ecdsa_kernel_rows(torch, dev, ecdsa_plane, ecdsa_ledger,
+                      sm_clock_mhz) -> list:
+    """The ECDSA kernels at their paths' shapes
+    (tools/ecdsa_probe.measure): ecdsa_rlc for secp256k1 at the config-3
+    cluster's median lanes a launch and at B = 128, for P-256 at B = 128;
+    ecdsa_verify for both curves at B = 128. Each on a seeded corpus
+    with a forged item and the two crafted wrap-case lanes, against its
+    plain version on the card (the fold's value word for word on the
+    batch with forged lanes, verdicts and x), its device time by CUDA
+    graph on the clean lanes, host issue time, the plain version's time,
+    the bound from the products and squarings the function needs on
+    these scalars at its cheapest (ops/ecdsa_cuda.field_ops: GLV, G's
+    fixed-base tables, width-w NAF) beside the kernel's own products,
+    and as the yardstick that decides
+    the crossover the host engine (scalar.ecdsa_verify_batch, warm
+    combs) on the same items; no PyTorch call computes this
+    (library_ms null)."""
+    from tpubft_torch.tools import ecdsa_probe
+    median = max(1, ecdsa_ledger["load"]["rlc_median_lanes"])
+    plane = ecdsa_plane["counts"]
+    cases = {("secp256k1", median): None, ("secp256k1", 128): None,
+             ("secp256r1", 128): None}
+    for curve, b in cases:
+        # the verify rows are the B = 128 ones: the median's plain
+        # verify (seconds of op-by-op PyTorch) is left out
+        cases[(curve, b)] = ecdsa_probe.measure(curve, b, dev, seed=b,
+                                                plain_verify=b == 128)
+    src = "tpubft_torch/ops/csrc/ecdsa.cu"
+    rows = []
+
+    def bound(ops, nbytes):
+        return work_bound_ms(ops, nbytes, sm_clock_mhz)
+    for curve, b in cases:
+        m = cases[(curve, b)]
+        by_path = {"ecdsa_plane": plane[curve]["rlc_launches"]}
+        if curve == "secp256k1":
+            by_path["ecdsa_ledger_replica"] = ecdsa_ledger["load"][
+                "rlc_launches"]
+        bd = bound(m["ops"], m["bytes"])
+        rows.append({
+            "name": "ecdsa_rlc", "route": "cuda", "source": src,
+            "replaces": "tpubft/ops/ecdsa.py:304 (make_rlc_kernel; "
+                        "rlc_fold_body :267-300)",
+            "curve": curve, "batch": b, "lanes": m["lanes"],
+            "shape": ("config 3 cluster's median lanes a launch"
+                      if b == median and curve == "secp256k1"
+                      and b != 128 else f"B={b}"),
+            "path": "ECDSA client signatures (SigManager -> "
+                    "verify_batch_mixed -> rlc_verify_batch)",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": m["rlc_mismatches"] + int(m["clean_nonzero"])
+            + int(not m["fold_nonzero"]),
+            "ms": m["rlc_ms"], "host_ms": m["rlc_host_ms"],
+            "plain_ms": m["rlc_plain_ms"], "host_prep_ms": m["prep_ms"],
+            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+            "ops": bd["ops"], "bytes": bd["bytes"],
+            "field_muls": m["field_muls"], "field_sqrs": m["field_sqrs"],
+            "kernel_field_muls": m["kernel_field_muls"],
+            "library_ms": None,
+            "host_engine_ms": m["host_engine_ms"],
+            "host_engine_cold_ms": m["host_engine_cold_ms"]})
+    for curve in ("secp256k1", "secp256r1"):
+        m = cases[(curve, 128)]
+        bd = bound(m["verify_ops"], m["verify_bytes"])
+        rows.append({
+            "name": "ecdsa_verify", "route": "cuda", "source": src,
+            "replaces": "tpubft/ops/ecdsa.py:172 "
+                        "(make_verify_kernel.<locals>.kernel, :169-184)",
+            "curve": curve, "batch": 128, "lanes": m["lanes"],
+            "path": "ops/ecdsa.verify_batch: ecdsa_plane's per-item "
+                    "oracle (no user path)",
+            "launches": ecdsa_plane["verify_oracle_launches"][curve],
+            "launches_by_path": {"ecdsa_plane_oracle":
+                                 ecdsa_plane["verify_oracle_launches"][curve]},
+            "max_abs_err": m["verify_mismatches"]
+            + m["verify_host_mismatches"],
+            "host_mismatches": m["verify_host_mismatches"],
+            "ms": m["verify_ms"], "host_ms": m["verify_host_ms"],
+            "plain_ms": m["verify_plain_ms"],
+            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+            "ops": bd["ops"], "bytes": bd["bytes"],
+            "field_muls": m["verify_field_muls"],
+            "field_sqrs": m["verify_field_sqrs"],
+            "kernel_field_muls": m["verify_kernel_field_muls"],
+            "library_ms": None,
+            "host_engine_ms": m["host_engine_ms"]})
+    return rows
+
+
 def phase_ledger(torch, dev, blocks: int = 800, chunk: int = 64) -> dict:
     """Config 1's categorized ledger at the kvbcbench block shape, device
     hashing against hashlib: ingested in add_blocks chunks of 64 as the
@@ -2074,7 +2571,7 @@ def sha256_rate_row(torch, dev, b: int, sm_clock_mhz: float) -> dict:
 
 def phase_kernels(torch, dev, plane, replica, ledger_replica, kernel,
                   ladder, ledger, digest, bls_plane, bls_ledger,
-                  sm_clock_mhz) -> dict:
+                  ecdsa_plane, ecdsa_ledger, sm_clock_mhz) -> dict:
     """Every kernel, timed at its path's shape: the verify kernel at one
     PrePrepare drain of 100 signatures, the ladder kernels at the ladder's
     1024 lanes, SHA-256 at a state-transfer window of 64 raw blocks that
@@ -2143,6 +2640,8 @@ def phase_kernels(torch, dev, plane, replica, ledger_replica, kernel,
     rows.append(sha256_kernel_row(torch, dev, ledger_replica, ledger, digest,
                                   sm_clock_mhz))
     rows += bls_kernel_rows(torch, dev, bls_plane, bls_ledger, sm_clock_mhz)
+    rows += ecdsa_kernel_rows(torch, dev, ecdsa_plane, ecdsa_ledger,
+                              sm_clock_mhz)
     out = {"kernels": rows}
     emit(out)
     bad = [r["name"] for r in rows if r["max_abs_err"]]
@@ -2152,7 +2651,8 @@ def phase_kernels(torch, dev, plane, replica, ledger_replica, kernel,
     if bad:
         raise AssertionError(f"kernels disagree with the host engine: {bad}")
     idle = sorted({r["name"] for r in rows if r["launches"] < 1
-                   and r.get("path", "").startswith(("config", "batch"))})
+                   and r.get("path", "").startswith(("config", "batch",
+                                                     "ECDSA", "ops/ecdsa"))})
     if idle:
         raise AssertionError(f"kernels not launched on their path: {idle}")
     return out
@@ -2355,11 +2855,14 @@ def main() -> int:
     ledger_replica = phase_ledger_replica(torch, dev)
     bls_plane = phase_bls_plane(torch, dev)
     bls_ledger = phase_bls_ledger_replica(torch, dev)
+    ecdsa_plane = phase_ecdsa_plane(torch, dev)
+    ecdsa_ledger = phase_ecdsa_ledger_replica(torch, dev)
     ledger = phase_ledger(torch, dev)
     digest = phase_digest(torch, dev, ledger.pop("raws"))
     phase_rate(torch, dev, clock, info["nvidia_smi"])
     phase_kernels(torch, dev, plane, replica, ledger_replica, kernel, ladder,
-                  ledger, digest, bls_plane, bls_ledger, clock)
+                  ledger, digest, bls_plane, bls_ledger, ecdsa_plane,
+                  ecdsa_ledger, clock)
     emit({"phase": "done", "wall_s": time.monotonic() - t_start})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -50,10 +50,21 @@ def _equivocation_run(cluster_cls, counter_mod):
             assert cluster.replicas[r].view >= 1, \
                 f"replica {r} never left the equivocating primary's view"
         _wait_value(cluster, (1, 2, 3), 9)
-        # exactly once: one execution per honest replica, never two
-        executed = [cluster.metric(r, "counters", "executed_requests")
-                    for r in (1, 2, 3)]
-        return reply, executed
+        # exactly once: one execution per honest replica, never two. The
+        # execution lane applies the write (the handler's value) before
+        # the dispatcher thread folds the finished run into
+        # executed_requests, so wait for the fold as for the value.
+        return reply, _wait_executed(cluster, (1, 2, 3))
+
+
+def _wait_executed(cluster, replicas, budget_s=45.0):
+    def executed():
+        return [cluster.metric(r, "counters", "executed_requests")
+                for r in replicas]
+    deadline = time.monotonic() + budget_s
+    while 0 in executed() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    return executed()
 
 
 def test_equivocating_primary_commits_exactly_one_fork_like_the_reference():

@@ -1,8 +1,9 @@
 """The CUDA kernels of the port on a card: the verify kernel against the
 plain PyTorch version and the host scalar engine, the field kernels
 (fe_mul, and fe_inv in both of its designs) against Python ints, the SHA-256 kernel against hashlib and its plain
-version, the bring-up kernels against theirs, a short config-1
-replica cluster on the card, and an SKVBC ledger cluster (one write
+version, the bring-up kernels against theirs, the ECDSA kernels against
+their plain versions and the host engine (and rlc_verify_batch's
+bisection), a short config-1 replica cluster on the card, and an SKVBC ledger cluster (one write
 through the durability pipeline, one catch-up by state transfer whose
 windows go through the SHA-256 kernel). Marked `cuda`; each test
 skips where no card is present (run on the card:
@@ -526,3 +527,60 @@ def test_bls_threshold_flush_on_the_card(card, monkeypatch):
     assert bc.LAUNCHES["bls_msm"] == 1 and v.device_combines == 1
     assert got == cs.create_threshold_verifier().combine_batch(jobs)
     assert [ok for ok, _, _ in got].count(False) == 1
+
+
+# ---- ECDSA (ops/csrc/ecdsa.cu) ----
+
+@pytest.mark.parametrize("curve", ["secp256k1", "secp256r1"])
+@pytest.mark.parametrize("batch", [1, 33, 128])
+def test_ecdsa_kernels_match_plain_and_host(card, curve, batch):
+    """tools/ecdsa_probe.measure: the fold word for word against its plain
+    version on a batch with a forged lane and the wrap lanes, the clean
+    lanes' fold 0, the per-item verify's verdicts and x against its
+    plain version and the host engine."""
+    from tpubft_torch.tools import ecdsa_probe
+    row = ecdsa_probe.measure(curve, batch, card, seed=batch, reps=1,
+                              forged=(batch // 2,))
+    assert ecdsa_probe.problems(row) == []
+    assert row["fold_nonzero"] and not row["clean_nonzero"]
+
+
+@pytest.mark.parametrize("curve", ["secp256k1", "secp256r1"])
+def test_ecdsa_rlc_verify_batch_bisects_on_the_card(card, curve):
+    """rlc_verify_batch on the card: one launch for a clean batch, the
+    bisection's launches for forged items, verdicts of the host engine;
+    verify_batch (one launch) the same verdicts."""
+    from tpubft_torch.ops import ecdsa as E
+    from tpubft_torch.ops import ecdsa_cuda as ec
+    items = testing.ecdsa_corpus(curve, 40, seed=9, forged=(3, 30))
+    want = scalar.ecdsa_verify_batch([(pk, m, s) for m, s, pk in items],
+                                     curve)
+    ec.reset_launches()
+    E.reset_counts()
+    clean = [it for it, ok in zip(items, want) if ok]
+    assert E.rlc_verify_batch(curve, clean, device=card).all()
+    assert ec.LAUNCHES["ecdsa_rlc"] == 1
+    assert E.rlc_verify_batch(curve, items, device=card).tolist() == want
+    assert ec.LAUNCHES["ecdsa_rlc"] == E.COUNTS[curve]["rlc_launches"] > 3
+    assert E.verify_batch(curve, items, device=card).tolist() == want
+    assert ec.LAUNCHES["ecdsa_verify"] == 1
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "contiguity", "mask"])
+def test_ecdsa_wrappers_refuse_bad_cuda_tensors(card, case):
+    from tpubft_torch.ops import ecdsa_cuda as ec
+    w = torch.zeros((8, 4), dtype=torch.int32, device=card)
+    m = torch.ones(4, dtype=torch.bool, device=card)
+    bad = {"dtype": w.long(), "shape": w[:7].contiguous(),
+           "contiguity": torch.zeros((4, 8), dtype=torch.int32,
+                                     device=card).t(),
+           "mask": m.int()}[case]
+    before = dict(ec.LAUNCHES)
+    args = [w] * 6 + [m, m, w]
+    args[6 if case == "mask" else 2] = bad
+    with pytest.raises(ValueError):
+        ec.rlc("secp256k1", *args)
+    if case != "mask":
+        with pytest.raises(ValueError):
+            ec.verify("secp256k1", w, w, bad, w, w, w)
+    assert ec.LAUNCHES == before

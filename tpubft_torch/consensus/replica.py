@@ -220,7 +220,8 @@ class Replica(IReceiver):
             batch_fn = cuda_backend.verify_batch_mixed
         # singleton verifies stay on the CPU verifiers even with the CUDA
         # backend (latency-critical, can't amortize a dispatch); batches
-        # of >= device_min_verify_batch ride the device kernel
+        # of >= device_min_verify_batch ride the device kernel (ECDSA
+        # items: crypto/cuda.ecdsa_crossover decides, in SigManager)
         self.sig = SigManager(
             keys, self.aggregator,
             alias_fn=lambda p: (self.info.owner_of_internal_client(p)

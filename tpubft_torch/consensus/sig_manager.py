@@ -12,13 +12,18 @@ traffic into fixed-size batches; `verify_batch` front-runs everything
 with a bounded LRU memo of already-verified (principal, digest, sig)
 triples (retransmissions and view-change re-validation re-present
 identical items), then dispatches the residue as per-curve kernel calls
-(tpubft_torch.ops.ed25519 via the configured batch_fn, normally
-crypto/cuda.verify_batch_mixed) or the
-per-principal scalar fallback. Per-path counters (`memo_hits`,
-`batched_verifies`, `scalar_fallbacks`) ride the metrics component.
+(tpubft_torch.ops.ed25519 / ops.ecdsa via the configured batch_fn,
+normally crypto/cuda.verify_batch_mixed) or the per-principal scalar
+fallback: `device_min_batch` gates the non-ECDSA items, and the ECDSA
+items always go to batch_fn, whose crossover places each curve's
+group. Per-path counters (`memo_hits`, `batched_verifies`,
+`scalar_fallbacks`) ride the metrics component, with the ECDSA host
+tier's (`ecdsa_batched_host`, `pubkey_memo_hits`, `ecdsa_pk_evictions`,
+`ecdsa_comb_evictions`, `ecdsa_host_us`, the `sigmgr<id>.ecdsa_host_batch`
+histogram) folded from the scalar engine's attributed stats sink.
 This takes the per-message sig check off the dispatcher thread, the
-reference's RequestThreadPool role. The ECDSA host-tier telemetry (stats
-sink, batch-size histogram) and the mesh counter wait for their slices.
+reference's RequestThreadPool role. The mesh counter
+(`mesh_sharded_verifies`) waits for the mesh tier (ROADMAP A.7).
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from tpubft_torch.consensus.keys import ClusterKeys
-from tpubft_torch.crypto.cpu import require_ported
+from tpubft_torch.crypto.cpu import ECDSA_CURVES
 from tpubft_torch.crypto.interfaces import IVerifier
 from tpubft_torch.device import NoDevice
 from tpubft_torch.ops.dispatch import BreakerOpen, device_breaker
@@ -56,9 +61,10 @@ class SigManager:
         # verdicts in ONE dispatch per scheme (the device path; None =
         # per-principal loop)
         self._batch_fn = batch_fn
-        # batches smaller than this verify on the per-principal CPU
-        # verifiers — a device dispatch only pays off once it amortizes
-        # over enough signatures (SURVEY §7 hard part 6)
+        # non-ECDSA residues smaller than this verify on the
+        # per-principal CPU verifiers — a device dispatch only pays off
+        # once it amortizes over enough signatures (SURVEY §7 hard part
+        # 6); ECDSA items always reach batch_fn, whose crossover decides
         self.device_min_batch = device_min_batch
         # a superseded key only verifies messages whose consensus seqnum
         # is at most rotation_seq + this window (callers pass the
@@ -136,6 +142,40 @@ class SigManager:
         # in degraded verification mode; the breaker snapshot says why
         self.degraded_verifies = self.metrics.register_counter(
             "degraded_verifies")
+        # ECDSA two-tier sensors (the autotuner's inputs): the device
+        # tier's batch stats flow through the kernel profiler
+        # (device_section("ecdsa")); the host tier is counted here —
+        # items through crypto/scalar.ecdsa_verify_batch (attributed to
+        # THIS manager via the thread-local stats sink wrapped around
+        # its verification, so every route it takes is covered) and
+        # pubkey-decode memo hits (decode + on-curve check paid once per
+        # key, not per retransmitted verify)
+        self.ecdsa_batched_host = self.metrics.register_counter(
+            "ecdsa_batched_host")
+        self.pubkey_memo_hits = self.metrics.register_counter(
+            "pubkey_memo_hits")
+        # bounded-LRU evictions in the scalar engine's per-principal
+        # caches (pubkey-decode entries / hot comb tables) attributed to
+        # this manager's verifies — read next to pubkey_memo_hits: a
+        # high eviction rate with a falling hit-rate means the worker's
+        # principal population outruns TPUBFT_ECDSA_PK_CACHE
+        self.ecdsa_pk_evictions = self.metrics.register_counter(
+            "ecdsa_pk_evictions")
+        self.ecdsa_comb_evictions = self.metrics.register_counter(
+            "ecdsa_comb_evictions")
+        # cumulative wall time the batched host engine spent on THIS
+        # manager's items (µs) — with ecdsa_batched_host this yields the
+        # host tier's per-item cost, the sensor the autotuner compares
+        # against the kernel profiler's `ecdsa` device tier to place
+        # the crossover knob
+        self.ecdsa_host_us = self.metrics.register_counter(
+            "ecdsa_host_us")
+        from tpubft_torch.diagnostics import get_registrar
+        # replica-scoped so in-process multi-replica topologies don't
+        # co-mingle batch-shape samples
+        who = "" if keys.my_id is None else keys.my_id
+        self._h_ecdsa_host_batch = get_registrar().histogram(
+            f"sigmgr{who}.ecdsa_host_batch", unit="items")
 
     # ---- signing ----
     def sign(self, data: bytes) -> bytes:
@@ -367,8 +407,17 @@ class SigManager:
                 keys[i] = key
                 pending.append(i)
         if pending:
-            self._verify_pending(items, pending, out, keys, aliased, pks,
-                                 seq, view_scoped)
+            from tpubft_torch.crypto import scalar as scalar_engine
+            # thread-local attribution scope: the shared module-level
+            # scalar engine records ECDSA batch/memo events into THIS
+            # manager's sink (verification runs synchronously on this
+            # thread), so per-replica metrics stay exact even when
+            # several in-process replicas share the engine's caches
+            sink = scalar_engine.new_stats_sink()
+            with scalar_engine.attribute_stats(sink):
+                self._verify_pending(items, pending, out, keys, aliased,
+                                     pks, seq, view_scoped)
+            self._fold_ecdsa_stats(sink)
         for ok in out:
             (self.sigs_verified if ok else self.sig_failures).inc()
         return out
@@ -377,55 +426,101 @@ class SigManager:
                         keys: List[Optional[Tuple]], aliased, pks,
                         seq: Optional[int], view_scoped: bool) -> None:
         """Memo-miss residue: one cross-principal device dispatch when
-        configured and the sub-batch is big enough, else the grouped
-        host path. Successful current-key verdicts are memoized."""
-        sub = [items[i] for i in pending]
-        verdicts = None
-        use_device = (self._batch_fn is not None
-                      and len(sub) >= self.device_min_batch)
-        if use_device and not device_breaker().allow():
-            # non-mutating preview: while the breaker is OPEN, skip
-            # building the device batch entirely instead of paying
-            # list construction + a BreakerOpen round-trip on every
-            # degraded verify (attempt() below still guards the
-            # admitted path — a lost race just raises as before)
-            self.degraded_verifies.inc(len(sub))
-        elif use_device:
-            try:
-                verdicts, via_grace = self._verify_batch_cross(
-                    sub, seq, view_scoped,
-                    aliased=[aliased[i] for i in pending],
-                    pks=[pks[i] for i in pending])
-                self.batched_verifies.inc(len(sub))
-            except BreakerOpen:
-                # breaker tripped: fast-fail BEFORE the device — the
-                # scalar engines carry the load until the half-open
-                # probe re-admits the device
-                self.degraded_verifies.inc(len(sub))
-            except (NoDevice, NotImplementedError):
-                # no card is a set-up fault, not a loss; a scheme whose
-                # slice is not ported (ECDSA) has no host engine either,
-                # and is refused before the breaker's attempt
-                raise
-            except RuntimeError:
-                # a device failure (a failed launch) must degrade
-                # verification, never fail it: the breaker recorded the
-                # failure (trip after N consecutive). A BuildError, a
-                # wrapper's ValueError and any other error raise.
-                log.warning("device verify batch failed (%d items); "
-                            "rerouting to scalar engines",
-                            len(sub), exc_info=True)
-                self.degraded_verifies.inc(len(sub))
-        if verdicts is None:
+        configured, else the grouped host path. Successful current-key
+        verdicts are memoized.
+
+        Port divergence (reference sig_manager.py:429-430 gates the whole
+        residue by device_min_batch): here device_min_batch gates the
+        non-ECDSA items alone, and every ECDSA item goes to the batch
+        backend, whose crossover (crypto/cuda.ecdsa_crossover) alone
+        decides where each curve's group verifies."""
+        on_device: List[int] = []
+        if self._batch_fn is not None:
+            ecdsa = [self._scheme_of(aliased[i]) in ECDSA_CURVES
+                     for i in pending]
+            enough = len(pending) - sum(ecdsa) >= self.device_min_batch
+            on_device = [i for i, e in zip(pending, ecdsa) if e or enough]
+        got: Dict[int, Tuple[bool, bool]] = {}
+        if on_device:
+            dev = self._verify_on_device(items, on_device, aliased, pks,
+                                         seq, view_scoped)
+            if dev is not None:
+                got.update(zip(on_device, zip(*dev)))
+        rest = [i for i in pending if i not in got]
+        if rest:
             verdicts, via_grace = self._verify_batch_grouped(
-                sub, seq, view_scoped)
-            self.scalar_fallbacks.inc(len(sub))
-        for i, ok, grace in zip(pending, verdicts, via_grace):
+                [items[i] for i in rest], seq, view_scoped)
+            self.scalar_fallbacks.inc(len(rest))
+            got.update(zip(rest, zip(verdicts, via_grace)))
+        for i in pending:
+            ok, grace = got[i]
             out[i] = ok
             # grace-key acceptances are deliberately NOT memoized:
             # the memo must never outlive the grace window
             if ok and not grace and keys[i] is not None:
                 self._memo_add(keys[i])
+
+    def _verify_on_device(self, items, idxs: List[int], aliased, pks,
+                          seq: Optional[int], view_scoped: bool
+                          ) -> Optional[Tuple[List[bool], List[bool]]]:
+        """The items at `idxs` through the batch backend: (verdicts,
+        accepted-via-grace-key), or None when the device failed or the
+        breaker is open (counted in degraded_verifies; the caller
+        verifies them on the host)."""
+        if not device_breaker().allow():
+            # non-mutating preview: while the breaker is OPEN, skip
+            # building the device batch entirely instead of paying
+            # list construction + a BreakerOpen round-trip on every
+            # degraded verify (attempt() below still guards the
+            # admitted path — a lost race just raises as before)
+            self.degraded_verifies.inc(len(idxs))
+            return None
+        try:
+            result = self._verify_batch_cross(
+                [items[i] for i in idxs], seq, view_scoped,
+                aliased=[aliased[i] for i in idxs],
+                pks=[pks[i] for i in idxs])
+            self.batched_verifies.inc(len(idxs))
+            return result
+        except BreakerOpen:
+            # breaker tripped: fast-fail BEFORE the device — the
+            # scalar engines carry the load until the half-open
+            # probe re-admits the device
+            self.degraded_verifies.inc(len(idxs))
+        except NoDevice:
+            # no card is a set-up fault, not a loss
+            raise
+        except RuntimeError:
+            # a device failure (a failed launch) must degrade
+            # verification, never fail it: the breaker recorded the
+            # failure (trip after N consecutive). A BuildError, a
+            # wrapper's ValueError and any other error raise.
+            log.warning("device verify batch failed (%d items); "
+                        "rerouting to scalar engines",
+                        len(idxs), exc_info=True)
+            self.degraded_verifies.inc(len(idxs))
+        return None
+
+    def _fold_ecdsa_stats(self, sink) -> None:
+        """Fold this manager's attributed scalar-engine events into its
+        metrics component + batch-shape histogram (covers BOTH host
+        routes — the grouped fallback and verify_batch_mixed's
+        below-crossover ride). The drain is atomic per sink
+        (StatsSink.drain swaps under the sink lock), so concurrent
+        drains never lose or double-count."""
+        stats = sink.drain()
+        if stats["host_items"]:
+            self.ecdsa_batched_host.inc(stats["host_items"])
+        if stats["host_ns"]:
+            self.ecdsa_host_us.inc(stats["host_ns"] // 1000)
+        if stats["hits"]:
+            self.pubkey_memo_hits.inc(stats["hits"])
+        if stats["evictions"]:
+            self.ecdsa_pk_evictions.inc(stats["evictions"])
+        if stats["comb_evictions"]:
+            self.ecdsa_comb_evictions.inc(stats["comb_evictions"])
+        for size in stats["host_sizes"]:
+            self._h_ecdsa_host_batch.record(size)
 
     def _verify_batch_grouped(self, items: Sequence[Tuple[int, bytes, bytes]],
                               seq: Optional[int], view_scoped: bool
@@ -470,10 +565,6 @@ class SigManager:
             if pk is not None:
                 entries.append((self._scheme_of(a), pk, data, sig))
                 keyed.append(i)
-        # an unported scheme raises here, outside the breaker: it is a gap
-        # of the port, not a failure of the card
-        for scheme in {e[0] for e in entries}:
-            require_ported(scheme)
         # the device ride runs under the circuit breaker: exceptions and
         # latency-SLO breaches count against the failure budget, an OPEN
         # breaker raises BreakerOpen before building any device work

@@ -10,6 +10,10 @@ arrays, bytes, ints), so this module needs nothing of the reference:
   * `msm_inputs_from_numpy` turns the reference's G1 MSM inputs (its
     (255, S, K) scalar bit matrix, (36, S, K) 11-bit Montgomery point
     limbs and (S, K) identity mask) into the port's MSM kernel inputs;
+  * `rlc_inputs_from_numpy` turns the reference's prepared ECDSA RLC
+    batch (its PreparedRlcBatch: (256, B) scalar bit matrices and
+    25-limb 11-bit Montgomery words at R = 2^275) into the port's RLC
+    kernel inputs ((8, B) words of the canonical integers);
   * `cryptosystem_from_keys` carries a threshold system's key material
     across (master key, share keys, secret shares: ints, bytes and
     int-tuple points in both packages), and `public_cryptosystem` its
@@ -17,7 +21,7 @@ arrays, bytes, ints), so this module needs nothing of the reference:
   * `cluster_keys_from_public` builds the port's ClusterKeys from the
     reference's public material (replica and client public keys, the
     threshold systems' public keys and, for threshold-bls, master
-    keys);
+    keys; client keys of any scheme, 65-byte SEC1 points for ECDSA);
   * `block_updates` builds a block's updates for either package from
     plain (category, key, value, type) rows;
   * `memorydb_from_rows` carries a ledger across: the port's MemoryDB
@@ -36,6 +40,7 @@ from tpubft_torch.consensus.keys import ClusterKeys
 from tpubft_torch.crypto.interfaces import Cryptosystem
 from tpubft_torch.kvbc.categories import BlockUpdates
 from tpubft_torch.ops import bls12_381 as bls_ops
+from tpubft_torch.ops import ecdsa as ecdsa_ops
 from tpubft_torch.ops import ed25519 as ops
 from tpubft_torch.storage import MemoryDB, WriteBatch
 
@@ -82,6 +87,41 @@ def msm_inputs_from_numpy(bits, px, py, infinity,
     return bls_ops.to_tensors(
         tuple(a.reshape((a.shape[0],) + lanes) for a in (words, qx, qy))
         + (np.asarray(infinity, dtype=bool).reshape(lanes),),
+        _device.resolve(device))
+
+
+def _bits_to_ints(bits) -> list:
+    """(nbits, B) msb-first bit matrix -> B ints."""
+    flat = np.asarray(bits).reshape(np.asarray(bits).shape[0], -1)
+    return [int("".join(map(str, flat[:, j].tolist())), 2)
+            for j in range(flat.shape[1])]
+
+
+def rlc_inputs_from_numpy(curve_name: str, u1_bits, u2_bits, qx_m, qy_m,
+                          xr_m, xrpn_m, wrap_ok, a_m, host_valid,
+                          device: Optional[torch.device] = None
+                          ) -> Tuple[torch.Tensor, ...]:
+    """The reference's PreparedRlcBatch fields (ops/ecdsa.py:86-95) ->
+    the port's RLC kernel inputs on `device` (default: the card), in
+    ops/ecdsa.rlc_fold_kernel's argument order (u1, u2, qx, qy, xr, xrpn,
+    wrap_ok, active, a): the bit matrices become (8, B) words, the
+    Montgomery limbs (radix 2^11, 25 limbs for a 256-bit p, R = 2^275)
+    the canonical integers' words."""
+    p = ecdsa_ops.CURVES[curve_name]["p"]
+    nl = np.asarray(qx_m).shape[0]
+    back = pow(1 << (_REF_LIMB_BITS * nl), -1, p)
+
+    def ints(limbs):
+        flat = np.asarray(limbs)
+        return [sum(int(v) << (_REF_LIMB_BITS * i)
+                    for i, v in enumerate(flat[:, j].tolist())) * back % p
+                for j in range(flat.shape[1])]
+    words = ecdsa_ops.words_of
+    return ecdsa_ops.to_tensors(
+        (words(_bits_to_ints(u1_bits)), words(_bits_to_ints(u2_bits)),
+         words(ints(qx_m)), words(ints(qy_m)), words(ints(xr_m)),
+         words(ints(xrpn_m)), np.asarray(wrap_ok, dtype=bool),
+         np.asarray(host_valid, dtype=bool), words(ints(a_m))),
         _device.resolve(device))
 
 

@@ -1,19 +1,23 @@
-"""Host signer/verifier backends (port of the Ed25519 half of
-tpubft/crypto/cpu.py).
+"""Host signer/verifier backends (port of tpubft/crypto/cpu.py): Ed25519
+and ECDSA over secp256k1 / P-256 (secp256r1).
 
 The implementation underneath is the port's own pure-Python engine
 (crypto/scalar.py), so the port works with numpy, torch and the stdlib
-alone. The reference may route host signing through OpenSSL when the
-`cryptography` package is present; the signatures are byte-identical
-either way (RFC 8032 is deterministic), so the port leaves that
-accelerator out.
+alone. The reference may route host signing and verifying through
+OpenSSL when the `cryptography` package is present (cpu.py:33-58); the
+port leaves that accelerator out. Ed25519 signatures are byte-identical
+either way (RFC 8032 is deterministic); ECDSA signs by RFC 6979 here,
+where the reference's OpenSSL branch draws a random nonce: both verify
+identically, and here they are reproducible.
 
 Backend order for a verify:
-  1. the batched CUDA kernel — SigManager.verify_batch / BatchVerifier;
-  2. the scalar engine — always available; the degraded tier.
+  1. the batched CUDA kernels — SigManager.verify_batch / BatchVerifier
+     (Ed25519 verify, ECDSA's RLC fold);
+  2. the scalar engine — always available; the degraded tier
+     (`EcdsaVerifier.verify_batch` rides its batched walk).
 
-ECDSA signers and verifiers wait for their slice and raise
-NotImplementedError here.
+All signatures use fixed-length raw encodings (64-byte r||s for ECDSA,
+65-byte SEC1 uncompressed public keys).
 """
 from __future__ import annotations
 
@@ -25,9 +29,7 @@ from tpubft_torch.crypto.interfaces import ISigner, IVerifier
 
 ED25519_SIG_LEN = 64
 ED25519_PK_LEN = 32
-
-_ECDSA_SCHEMES = ("ecdsa-secp256k1", "secp256k1", "ecdsa-secp256r1",
-                  "secp256r1", "ecdsa-p256")
+ECDSA_SIG_LEN = 64  # raw r||s, 32B each
 
 
 class Ed25519Signer(ISigner):
@@ -79,24 +81,101 @@ class Ed25519Verifier(IVerifier):
         return ED25519_SIG_LEN
 
 
-def require_ported(scheme: str) -> None:
-    """Raise NotImplementedError for a scheme whose slice is not ported
-    (ECDSA). Callers run it before any device work, so an unported scheme
-    never reaches the device breaker as a device failure."""
-    if scheme in _ECDSA_SCHEMES:
-        raise NotImplementedError(f"{scheme} verification is not ported yet")
+# ---------------- ECDSA (secp256k1 / P-256), raw r||s signatures ----------------
+# The reference's classes (cpu.py:147-247) on the scalar engine alone:
+# its OpenSSL branches (`_sk`, `_pk`) are left out.
+
+class EcdsaSigner(ISigner):
+    def __init__(self, private_value: int, curve: str = "secp256k1"):
+        if curve not in scalar.CURVES:
+            raise ValueError(f"unknown curve {curve}")
+        if not 1 <= private_value < scalar.CURVES[curve]["n"]:
+            # invalid keys must not fail late
+            raise ValueError("ECDSA private value out of range [1, n-1]")
+        self.curve_name = curve
+        self.private_value = private_value
+        self._pub: Optional[bytes] = None
+
+    @classmethod
+    def generate(cls, curve: str = "secp256k1",
+                 seed: Optional[bytes] = None) -> "EcdsaSigner":
+        if seed is not None:
+            return cls(scalar.ecdsa_seed_to_private(seed, curve), curve)
+        return cls(scalar.ecdsa_random_private(curve), curve)
+
+    def sign(self, data: bytes) -> bytes:
+        return scalar.ecdsa_sign(self.private_value, data, self.curve_name)
+
+    @property
+    def signature_length(self) -> int:
+        return ECDSA_SIG_LEN
+
+    def public_bytes(self) -> bytes:
+        """Uncompressed SEC1 point (0x04 || x || y), 65 bytes."""
+        if self._pub is None:
+            self._pub = scalar.ecdsa_public_key(self.private_value,
+                                                self.curve_name)
+        return self._pub
+
+
+class EcdsaVerifier(IVerifier):
+    def __init__(self, public_key_bytes: bytes, curve: str = "secp256k1"):
+        if curve not in scalar.CURVES:
+            raise ValueError(f"unknown curve {curve}")
+        self.curve_name = curve
+        self.public_key_bytes = public_key_bytes
+        if (len(public_key_bytes) != 65 or public_key_bytes[0] != 0x04
+                or not scalar.ecdsa_on_curve(
+                    int.from_bytes(public_key_bytes[1:33], "big"),
+                    int.from_bytes(public_key_bytes[33:], "big"),
+                    curve)):
+            raise ValueError("invalid SEC1 uncompressed public key")
+
+    def verify(self, data: bytes, sig: bytes) -> bool:
+        if len(sig) != ECDSA_SIG_LEN:
+            return False
+        return scalar.ecdsa_verify(self.public_key_bytes, data, sig,
+                                   self.curve_name)
+
+    @property
+    def uses_scalar_engine(self) -> bool:
+        """Always True here: verifies run on the in-repo scalar engine,
+        whose batches ride ecdsa_verify_batch."""
+        return True
+
+    def verify_batch(self, items) -> list:
+        """Batch verification through the Montgomery/comb engine
+        (scalar.ecdsa_verify_batch): what keeps degraded mode (breaker
+        OPEN, no device) at thousands of verifies/sec instead of the
+        per-item ladder's tens."""
+        if len(items) > 1:
+            return scalar.ecdsa_verify_batch(
+                [(self.public_key_bytes, d, s) for d, s in items],
+                self.curve_name)
+        return [self.verify(d, s) for d, s in items]
+
+    @property
+    def signature_length(self) -> int:
+        return ECDSA_SIG_LEN
+
+
+# the ECDSA scheme names and their curves
+ECDSA_CURVES = {"ecdsa-secp256k1": "secp256k1", "secp256k1": "secp256k1",
+                "ecdsa-secp256r1": "secp256r1", "secp256r1": "secp256r1",
+                "ecdsa-p256": "secp256r1"}
 
 
 def make_signer(scheme: str, seed: Optional[bytes] = None) -> ISigner:
     if scheme == "ed25519":
         return Ed25519Signer.generate(seed=seed)
-    if scheme in _ECDSA_SCHEMES:
-        raise NotImplementedError(f"{scheme} signing is not ported yet")
+    if scheme in ECDSA_CURVES:
+        return EcdsaSigner.generate(ECDSA_CURVES[scheme], seed=seed)
     raise ValueError(f"unknown signature scheme {scheme}")
 
 
 def make_verifier(scheme: str, public_key_bytes: bytes) -> IVerifier:
     if scheme == "ed25519":
         return Ed25519Verifier(public_key_bytes)
-    require_ported(scheme)
+    if scheme in ECDSA_CURVES:
+        return EcdsaVerifier(public_key_bytes, ECDSA_CURVES[scheme])
     raise ValueError(f"unknown signature scheme {scheme}")

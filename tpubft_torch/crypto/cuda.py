@@ -1,14 +1,19 @@
 """CUDA-backed crypto plugin implementations (port of
-tpubft/crypto/tpu.py; its ECDSA routing waits for its slice).
+tpubft/crypto/tpu.py).
 
 The reference verifies every signature behind its plugin boundaries
 (`IVerifier`, `IThresholdVerifier`); here the same boundaries run on the
-batched Ed25519 kernel (ops/ed25519.py → ops/ed25519_cuda.py):
+batched Ed25519 kernel (ops/ed25519.py → ops/ed25519_cuda.py) and the
+ECDSA RLC kernel (ops/ecdsa.py → ops/ecdsa_cuda.py):
 
   * verify_batch_items          — cross-principal one-launch batch, used by
                                   SigManager.verify_batch and the multisig
                                   share paths;
-  * verify_batch_mixed          — SigManager's (scheme, pk, data, sig) entry;
+  * verify_batch_mixed          — SigManager's (scheme, pk, data, sig) entry:
+                                  Ed25519 on the verify kernel, each ECDSA
+                                  curve's group at or above
+                                  `ecdsa_crossover()` on the RLC kernel
+                                  (below it the batched host engine);
   * CudaEd25519Verifier         — per-principal IVerifier;
   * CudaMultisigEd25519Verifier — combined-multisig verification, bad-share
                                   identification and the fused cross-slot
@@ -37,7 +42,7 @@ import struct
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from tpubft_torch.crypto import bls12381 as bls
-from tpubft_torch.crypto.cpu import require_ported
+from tpubft_torch.crypto.cpu import ECDSA_CURVES
 from tpubft_torch.crypto.interfaces import IVerifier
 from tpubft_torch.crypto.systems import (BlsMultisigVerifier,
                                          BlsThresholdAccumulator,
@@ -56,23 +61,73 @@ def verify_batch_items(items: Sequence[Tuple[bytes, bytes, bytes]]
             ops.verify_batch([(d, s, pk) for pk, d, s in items])]
 
 
+# The ECDSA device/host crossover on a card, measured where users meet
+# it: config 3's n=31 cluster ran 8.68 requests/s at 2, 7.53 at 12, 4.49
+# at 24 and 4.50 with every group on the host engine on an H100 (`python
+# -m tpubft_torch.tools.ecdsa_probe --cluster`; PERF.md §6). Alone, one
+# call against one call, the device route first wins at 32 lanes
+# (`--crossover`); in a cluster the host engine holds the interpreter
+# lock for its whole batch, while the device route releases it for the
+# launch and its read-back.
+CARD_ECDSA_CROSSOVER = 2
+
+
+def ecdsa_crossover() -> int:
+    """Minimum ECDSA group (one curve's items of a batch) that rides the
+    RLC kernel; smaller groups verify on the batched host engine
+    (crypto/scalar.ecdsa_verify_batch). TPUBFT_ECDSA_CROSSOVER_B wins
+    (read on every call: tests flip it at runtime); else
+    CARD_ECDSA_CROSSOVER where the port's default device is a card and
+    1 << 30 where it is the CPU, on which the plain fold runs op by op.
+    A missing card raises device.NoDevice. The reference asks
+    jax.devices() once (tpu.py:51-60), divides the value by the healthy
+    mesh width (tpu.py:88-92; the port has one device, ROADMAP A.7) and
+    lets the autotuner override it (set_ecdsa_crossover; the port's
+    tuner is ROADMAP A.8)."""
+    v = os.environ.get("TPUBFT_ECDSA_CROSSOVER_B")
+    if v is not None:
+        try:
+            return int(v)
+        except ValueError:
+            # a malformed knob must not poison every verify batch
+            import logging
+            logging.getLogger("tpubft.crypto").warning(
+                "ignoring non-integer TPUBFT_ECDSA_CROSSOVER_B=%r", v)
+    from tpubft_torch import device
+    return (CARD_ECDSA_CROSSOVER if device.default_device().type == "cuda"
+            else 1 << 30)
+
+
 def verify_batch_mixed(items: Sequence[Tuple[str, bytes, bytes, bytes]]
                        ) -> List[bool]:
     """SigManager's cross-principal batch entry: (scheme, pubkey, data,
-    sig) tuples, one device launch per scheme present. Ed25519 rides the
-    CUDA kernel; an unknown scheme verifies on the host; ECDSA raises
-    NotImplementedError until its slice, before any group is launched."""
+    sig) tuples, one device dispatch per scheme present. This is how the
+    secp256k1/P-256 client-auth mix of BASELINE configs 3/5 rides the
+    card: EdDSA through the verify kernel, ECDSA through the RLC batch
+    kernel (ops/ecdsa.rlc_verify_batch — one launch a clean group,
+    bisection on a forged one). ECDSA groups below the crossover verify
+    on the batched host engine; an unknown scheme verifies on the host.
+    The reference offers an ECDSA group to the offload tier first
+    (tpu.py:156-160); the port has none yet (ROADMAP A.8)."""
     groups: Dict[str, List[int]] = {}
     for i, (scheme, _pk, _data, _sig) in enumerate(items):
         groups.setdefault(scheme, []).append(i)
-    for scheme in groups:
-        require_ported(scheme)
     out = [False] * len(items)
     for scheme, idxs in groups.items():
         sub = [items[i] for i in idxs]
         if scheme == "ed25519":
             verdicts = verify_batch_items([(pk, d, s)
                                            for _, pk, d, s in sub])
+        elif scheme in ECDSA_CURVES:
+            curve = ECDSA_CURVES[scheme]
+            if len(sub) >= ecdsa_crossover():
+                from tpubft_torch.ops import ecdsa as ops_ecdsa
+                verdicts = [bool(x) for x in ops_ecdsa.rlc_verify_batch(
+                    curve, [(d, s, pk) for _, pk, d, s in sub])]
+            else:
+                from tpubft_torch.crypto import scalar as _scalar
+                verdicts = _scalar.ecdsa_verify_batch(
+                    [(pk, d, s) for _, pk, d, s in sub], curve)
         else:                       # unknown scheme: host verifiers
             from tpubft_torch.crypto.cpu import make_verifier
             verdicts = []

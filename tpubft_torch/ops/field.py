@@ -11,13 +11,19 @@ and a whole schoolbook product, 24 of them summed, below 2^37. R is the
 same in both radixes (24 x 16 = 12 x 32 bits), so the Montgomery form is
 the kernels' own.
 
-Elements are loose between operations: limbs in (-2^17, 2^17) (the top
-one absorbs what does not fit, with the sign), value congruent to the
-element mod p and within a few p of [0, p). Carries are a fixed number
-of limb-parallel passes (no data-dependent loop, no synchronisation),
-and each Montgomery product ends with an estimated reduction that
-brings its value back into [-p, 2p) (`mul`). `canonical` gives the
-exact residue in [0, p) with tight 16-bit limbs; `to_words` and the
+Elements are loose between operations: value congruent to the element
+mod p and within a few p of [0, p); every operation leaves balanced
+limbs, |limb| <= 2^15 + 2 but the top one, which absorbs what does not
+fit, with the sign. Carries are a fixed number of limb-parallel passes
+(no data-dependent loop, no synchronisation) that round each limb's
+carry to the nearest (`_passes`), and each Montgomery product ends with
+an estimated reduction that brings its value back into [-p, 2p)
+(`mul`). The estimates sum limbs in float64; balanced limbs keep every
+term within 2^17 times the value, where a floor carry would leave a
+negative value's borrow chain (limbs of 2^16 - 1 up to a -1) far above
+a 256-bit p's top limb, whose terms cancel in float64 and spoil the
+estimate. `canonical` gives the exact residue in [0, p) with tight
+16-bit limbs for any limbs in (-2^17, 2^17); `to_words` and the
 comparisons go through it. The reference keeps 36 lazy 11-bit limbs
 for the TPU's int32 lanes (field.py:34,80); limb layouts are not part
 of the contract, the values are. This is a plain version, written for
@@ -34,6 +40,7 @@ import torch
 
 LIMB_BITS = 16
 MASK = (1 << LIMB_BITS) - 1
+HALF = 1 << (LIMB_BITS - 1)
 NL = 24                       # limbs of 16 bits
 WORDS = 12                    # the kernels' 32-bit words
 R_BITS = LIMB_BITS * NL       # Montgomery R = 2^384
@@ -66,14 +73,15 @@ def from_words(w: torch.Tensor) -> torch.Tensor:
 
 
 def _passes(x: torch.Tensor, n: int, wrap: bool = False) -> torch.Tensor:
-    """n limb-parallel carry passes along the limb axis: each limb keeps
-    its low 16 bits and hands the rest (floor, signed) to the next. The
-    top limb keeps its carry, or with `wrap` is masked too and the carry
-    out dropped (the value mod 2^(16 L)). A pass takes a limb bound of
-    2^b down to 2^(b-16) + 2^16."""
+    """n limb-parallel carry passes along the limb axis: each limb hands
+    its value rounded to the nearest multiple of 2^16 (signed) to the
+    next and keeps the rest, in [-2^15, 2^15). The top limb keeps its
+    carry, or with `wrap` hands it out too and the carry out is dropped
+    (the value mod 2^(16 L)). A pass takes a limb bound of 2^b down to
+    2^(b-16) + 2^15."""
     for _ in range(n):
-        hi = x >> LIMB_BITS
-        y = x & MASK
+        hi = (x + HALF) >> LIMB_BITS
+        y = x - (hi << LIMB_BITS)
         if not wrap:
             y[-1] = x[-1]
         y[1:] += hi[:-1]
@@ -200,7 +208,8 @@ class Field:
         return _passes(-a, 1)
 
     def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """Montgomery product a b R^-1 (mod p), loose in and out.
+        """Montgomery product a b R^-1 (mod p), loose in and out (the
+        inputs' limbs as the operations leave them, or tight).
 
         Separated operand scanning: T = a b as columns (each a sum of 24
         products of limbs below 2^17, so below 2^39); m = T p' mod R from
@@ -219,10 +228,27 @@ class Field:
         c = torch.round(_value(u[:NL], R_BITS)).long()
         return _passes(self._reduce(u[NL:], c), 3).reshape(shape)
 
+    def pow_const(self, a: torch.Tensor, e: int) -> torch.Tensor:
+        """a^e for a fixed public exponent, square and multiply from the
+        top bit (reference field.py:221-236, there a select per bit; the
+        exponent is public, so here a branch)."""
+        acc = self.one(a.shape[1:], a.device)
+        for i in range(max(e.bit_length(), 1) - 1, -1, -1):
+            acc = self.mul(acc, acc)
+            if (e >> i) & 1:
+                acc = self.mul(acc, a)
+        return acc
+
+    def inv(self, a: torch.Tensor) -> torch.Tensor:
+        """Fermat inversion a^(p-2); inv(0) = 0 (reference field.py:238)."""
+        return self.pow_const(a, self.p - 2)
+
     def canonical(self, a: torch.Tensor) -> torch.Tensor:
-        """The exact residue in [0, p), tight limbs."""
+        """The exact residue in [0, p), tight limbs. One balanced pass
+        first, so that limbs the operations did not leave (any in
+        (-2^17, 2^17)) estimate as well as theirs."""
         shape = a.shape
-        x = _carry(self._reduce(a.reshape(NL, -1)))
+        x = _carry(self._reduce(_passes(a.reshape(NL, -1), 1)))
         p = self._p(x)
         x = torch.where(x[-1:] < 0, _carry(x + p), x)
         d = _carry(x - p)

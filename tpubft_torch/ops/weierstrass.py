@@ -7,11 +7,12 @@ the reference's weierstrass.py:58-99): one branch-free formula valid
 for doubling, the identity and inverses, so the ladder needs no special
 cases for the identity it starts from, padded lanes or P + P. Points
 are (X:Y:Z) in Montgomery form, each coordinate a (24, ...batch) limb
-tensor of ops/field.py.
+tensor of ops/field.py. It serves BLS12-381 G1 (a = 0), secp256k1
+(a = 0) and P-256 (a = -3, the first user of the a-terms).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -26,15 +27,29 @@ class WPoint(NamedTuple):
 
 
 class Curve:
-    def __init__(self, field: Field, a: int, b: int):
+    def __init__(self, field: Field, a: int, b: int,
+                 gx: Optional[int] = None, gy: Optional[int] = None,
+                 order: Optional[int] = None):
+        # the generator and order are optional here (the reference's
+        # weierstrass.py:37 requires them): the BLS callers build
+        # Curve(field, a, b)
         self.f = field
         self.a = a % field.p
         self.b = b % field.p
+        self.gx, self.gy, self.order = gx, gy, order
 
     def identity(self, batch: Tuple[int, ...], device) -> WPoint:
         f = self.f
         return WPoint(f.zero(batch, device), f.one(batch, device),
                       f.zero(batch, device))
+
+    def generator(self, batch: Tuple[int, ...], device) -> WPoint:
+        f = self.f
+        return WPoint(*(torch.as_tensor(f.from_int(v), device=device)
+                        .reshape((NL,) + (1,) * len(batch))
+                        .expand((NL,) + tuple(batch)).clone()
+                        for v in (self.gx, self.gy)),
+                      f.one(batch, device))
 
     def from_affine(self, x_m: torch.Tensor, y_m: torch.Tensor) -> WPoint:
         return WPoint(x_m, y_m, self.f.one(x_m.shape[1:], x_m.device))
@@ -102,6 +117,36 @@ class Curve:
             acc = self.add(acc, acc)
             acc = self.select(row.bool(), self.add(acc, p), acc)
         return acc
+
+    def shamir_bits(self, bits1: torch.Tensor, p1: WPoint,
+                    bits2: torch.Tensor, p2: WPoint) -> WPoint:
+        """[k1]P1 + [k2]P2 as csrc/ecdsa.cu's ladder runs it, for its plain
+        version (ops/ecdsa.py): P1 + P2 is added once up front, then each
+        step doubles (the complete addition of acc to itself) and adds
+        P1, P2 or P1 + P2 where the step's digit b1 + 2 b2 is not 0. The
+        projective result is the kernel's to the word; the point equals
+        the reference's double_scalar_mul_bits' (weierstrass.py:118)."""
+        acc = self.identity(p1.x.shape[1:], p1.x.device)
+        both = (bits1 | bits2).reshape(bits1.shape[0], -1).any(1).nonzero()
+        if both.numel() == 0:
+            return acc
+        p12 = self.add(p1, p2)
+        for b1, b2 in zip(bits1[int(both[0, 0]):], bits2[int(both[0, 0]):]):
+            acc = self.add(acc, acc)
+            b1, b2 = b1.bool(), b2.bool()
+            t = self.select(b1 & b2, p12, self.select(b1, p1, p2))
+            acc = self.select(b1 | b2, self.add(acc, t), acc)
+        return acc
+
+    def to_affine(self, p: WPoint
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(x, y, is_identity): canonical integers (tight limbs, not
+        Montgomery) by a Fermat inversion of Z; the identity maps to
+        (0, 0, True) (reference weierstrass.py:140)."""
+        f = self.f
+        zi = f.inv(p.z)
+        return (f.from_mont(f.mul(p.x, zi)), f.from_mont(f.mul(p.y, zi)),
+                f.is_zero(p.z))
 
     def msm_reduce(self, p: WPoint) -> WPoint:
         """Tree-reduce along the last axis to one point (..., 1), padding

@@ -8,6 +8,12 @@ x = 0 and the sign bit set, A and R whose y has no square root, a
 small-order A (y = 0, a point of order 4), wrong-length signature and
 key, and R bytes that are not a point encoding.
 
+`ecdsa_corpus` is a seeded ECDSA batch (a few principals, RFC 6979
+signatures, forged items at chosen indices), and `ecdsa_wrap_lanes` the
+kernels' inputs for the wrap case x(T) = r + n, which no honest
+signature reaches (the reference's tests/test_ecdsa_batch.py:180-240
+crafts it the same way).
+
 `kvbcbench_rows` is the ledger's block shape: the reference's kvbcbench
 (benchmarks/bench_kvbc.py), 8 versioned keys and one Merkle-proven key
 per block.
@@ -144,6 +150,56 @@ def raw_kernel_lanes() -> Tuple[Tuple[np.ndarray, ...], List[bool]]:
               np.zeros(n, np.int32), limbs([r[1] for r in rows]),
               np.array([r[2] for r in rows], np.int32))
     return arrays, [r[3] for r in rows]
+
+
+@functools.lru_cache(maxsize=None)
+def _ecdsa_signer(curve: str, i: int) -> cpu.EcdsaSigner:
+    return cpu.EcdsaSigner.generate(curve, seed=f"ecdsa-{i}".encode())
+
+
+def ecdsa_corpus(curve: str, n: int, seed: int = 0, forged=(),
+                 principals: int = 16
+                 ) -> List[Tuple[bytes, bytes, bytes]]:
+    """n (message, signature r||s, SEC1 public key) triples of
+    `principals` signers, messages drawn from `seed`; the items at the
+    indices in `forged` carry another message than the one signed."""
+    rng = np.random.default_rng(seed)
+    items = []
+    for i in range(n):
+        signer = _ecdsa_signer(curve, i % principals)
+        msg = rng.integers(0, 256, 48, dtype=np.uint8).tobytes()
+        sig = signer.sign(msg)
+        if i in forged:
+            msg = b"forged" + msg[6:]
+        items.append((msg, sig, signer.public_bytes()))
+    return items
+
+
+def ecdsa_wrap_lanes(curve: str):
+    """Two crafted lanes of each ECDSA kernel's inputs, as (8, 2) uint32
+    words and (2,) masks: u1, u2 and Q are fixed, T = [u1]G + [u2]Q is
+    computed on the host, and r is x(T) + 1, so only the wrap candidate
+    r + n = x(T) can match. Returns (rlc, verify, want): rlc is
+    ops/ecdsa.rlc_fold_kernel's arguments after the curve, lane 0 with
+    wrap_ok (its residual is 0) and lane 1 the same without (nonzero);
+    verify is verify_kernel's, lane 0 with r+n = x(T) (accepted), lane 1
+    with r+n = x(T) + 1 (rejected); want = (x(T), [True, False])."""
+    from tpubft_torch.ops import ecdsa as ops_ecdsa
+    cv = scalar.CURVES[curve]
+    p, a = cv["p"], cv["a"]
+    u1, u2 = 0x1234567, 0x89ABCDE
+    d = scalar.ecdsa_seed_to_private(b"wrap", curve)
+    q = scalar._jac_to_affine(scalar._mul_g(d, curve), p)
+    t = scalar._jac_add(scalar._mul_g(u1, curve),
+                        scalar._jac_mul(u2, q, cv), p, a)
+    xt, _ = scalar._jac_to_affine(t, p)
+    junk = (xt + 1) % p
+    w = ops_ecdsa.words_of
+    both = (w([u1, u1]), w([u2, u2]), w([q[0], q[0]]), w([q[1], q[1]]))
+    rlc = both + (w([junk, junk]), w([xt, xt]), np.array([True, False]),
+                  np.ones(2, bool), w([12345, 12345]))
+    verify = both + (w([junk, junk]), w([xt, junk]))
+    return rlc, verify, (xt, [True, False])
 
 
 def kvbcbench_rows(blocks: int, keys_per_block: int = 8, big_every: int = 0

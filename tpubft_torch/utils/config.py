@@ -209,7 +209,8 @@ class ReplicaConfig:
     # sequence numbers (rotation cadence within a view)
     agg_rotate_seqs: int = 16
     # below this many signatures a batch verifies on the CPU verifiers
-    # instead of paying a device dispatch (latency-critical singletons)
+    # instead of paying a device dispatch (latency-critical singletons);
+    # ECDSA signatures are routed by crypto/cuda.ecdsa_crossover instead
     device_min_verify_batch: int = 32
     # hot-path verifications (client sigs at PrePrepare, combined-cert
     # checks) run as background jobs re-entering the dispatcher as
