@@ -203,9 +203,11 @@ line each; any failure exits non-zero:
            and two crafted wrap-case lanes), each against its plain
            version on the card (the fold's value word for word, verdicts
            and x), with the field products the function needs and the
-           kernel's own beside the bound, and the host engine's time on
-           the same items (scalar.ecdsa_verify_batch) as the yardstick
-           that decides the crossover;
+           kernel's own beside the bound, its chain floor (its longest
+           chain at the cycles of this run's clock64 probe,
+           ops/ecdsa_cuda.probe), and the host engine's time on the same
+           items (scalar.ecdsa_verify_batch) as the yardstick that
+           decides the crossover;
   done     the script's wall time from the first phase on.
 
 Then the card's name and power limit as nvidia-smi reports them, and last
@@ -2200,8 +2202,14 @@ def ecdsa_kernel_rows(torch, dev, ecdsa_plane, ecdsa_ledger,
     and as the yardstick that decides
     the crossover the host engine (scalar.ecdsa_verify_batch, warm
     combs) on the same items; no PyTorch call computes this
-    (library_ms null)."""
+    (library_ms null). Beside the bound, the chain floor: the kernel's
+    longest chain (ops/ecdsa_cuda.kernel_counts: its doublings,
+    additions, mixed additions and single products on the slowest
+    lane's [u2]Q thread, its join and end) at the cycles of this run's
+    clock64 probe (ops/ecdsa_cuda.probe) and the SM clock."""
+    from tpubft_torch.ops import ecdsa_cuda as ec
     from tpubft_torch.tools import ecdsa_probe
+    probes = {c: ec.probe(c, dev) for c in ("secp256k1", "secp256r1")}
     median = max(1, ecdsa_ledger["load"]["rlc_median_lanes"])
     plane = ecdsa_plane["counts"]
     cases = {("secp256k1", median): None, ("secp256k1", 128): None,
@@ -2242,6 +2250,10 @@ def ecdsa_kernel_rows(torch, dev, ecdsa_plane, ecdsa_ledger,
             "ops": bd["ops"], "bytes": bd["bytes"],
             "field_muls": m["field_muls"], "field_sqrs": m["field_sqrs"],
             "kernel_field_muls": m["kernel_field_muls"],
+            "kernel_chain": m["kernel_chain"],
+            "chain_floor_ms": ec.chain_floor_ms(
+                m["kernel_chain"], probes[curve], sm_clock_mhz),
+            "probe": probes[curve],
             "library_ms": None,
             "host_engine_ms": m["host_engine_ms"],
             "host_engine_cold_ms": m["host_engine_cold_ms"]})
@@ -2268,6 +2280,9 @@ def ecdsa_kernel_rows(torch, dev, ecdsa_plane, ecdsa_ledger,
             "field_muls": m["verify_field_muls"],
             "field_sqrs": m["verify_field_sqrs"],
             "kernel_field_muls": m["verify_kernel_field_muls"],
+            "kernel_chain": m["verify_kernel_chain"],
+            "chain_floor_ms": ec.chain_floor_ms(
+                m["verify_kernel_chain"], probes[curve], sm_clock_mhz),
             "library_ms": None,
             "host_engine_ms": m["host_engine_ms"]})
     return rows

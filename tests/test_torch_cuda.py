@@ -566,6 +566,43 @@ def test_ecdsa_rlc_verify_batch_bisects_on_the_card(card, curve):
     assert ec.LAUNCHES["ecdsa_verify"] == 1
 
 
+@pytest.mark.parametrize("curve", ["secp256k1", "secp256r1"])
+def test_ecdsa_kernels_on_exceptional_lanes(card, curve):
+    """testing.ecdsa_exceptional_lanes on the card (P = Q and P = -Q in
+    the join, u1 = 0, u2 = 0): verdicts and x as the host's integers say
+    and as verify_plain gives them, the fold word for word equal to
+    rlc_fold_plain's and 0 over the accepted lanes alone."""
+    from tpubft_torch.ops import ecdsa as E
+    from tpubft_torch.ops import ecdsa_cuda as ec
+    vcols, rcols, want, xs = testing.ecdsa_exceptional_lanes(curve)
+    vargs = E.to_tensors(vcols, card)
+    ok, x = (t.cpu() for t in ec.verify(curve, *vargs))
+    pok, px = (t.cpu() for t in E.verify_plain(curve, *vargs))
+    assert ok.tolist() == pok.tolist() == want
+    assert torch.equal(x, px)
+    assert [E.int_of(x[:, i].numpy()) for i in range(len(xs))] == xs
+    rargs = E.to_tensors(rcols, card)
+    fold = ec.rlc(curve, *rargs).cpu()
+    assert torch.equal(fold, E.rlc_fold_plain(curve, *rargs).cpu())
+    assert fold.any()
+    acc = [i for i, w in enumerate(want) if w]
+    assert not ec.rlc(curve, *E.to_tensors(
+        tuple(c[..., acc] for c in rcols), card)).cpu().any()
+
+
+def test_ecdsa_probe_reads_cycles(card):
+    """The clock64 probe of ecdsa.cu: every step a positive number of
+    cycles, a doubling and an addition more than a product, a pair of
+    products less than two."""
+    from tpubft_torch.ops import ecdsa_cuda as ec
+    for curve in ("secp256k1", "secp256r1"):
+        p = ec.probe(curve, card)
+        assert all(v > 0 for k, v in p.items() if k.startswith("cycles"))
+        assert p["cycles_per_dbl"] > p["cycles_per_field_mul"]
+        assert p["cycles_per_add"] > p["cycles_per_dbl"]
+        assert p["cycles_per_mul_pair"] < 2 * p["cycles_per_field_mul"]
+
+
 @pytest.mark.parametrize("case", ["dtype", "shape", "contiguity", "mask"])
 def test_ecdsa_wrappers_refuse_bad_cuda_tensors(card, case):
     from tpubft_torch.ops import ecdsa_cuda as ec

@@ -7,8 +7,9 @@ exactly (tolerance: none; every value is an integer mod p):
     values near 2^256 and random values, and on loose inputs (limbs out
     of their 16-bit range, negative values, values of several p);
   * Curve: the complete addition at P+P, P+(-P), O+P, P+O and P+Q
-    (projective coordinates equal as field values), shamir_bits (the
-    ECDSA kernel's own ladder) against the reference's Shamir ladder
+    (projective coordinates equal as field values); the ECDSA kernel's
+    own ladder (ops/ecdsa._ladder: Curve.window_sum, fixed_base_sum and
+    jac_add, Jacobian) against the reference's Shamir ladder
     double_scalar_mul_bits and to_affine, both curves (a = 0 and the
     a = -3 terms of P-256).
 """
@@ -191,10 +192,11 @@ def test_complete_addition_matches_the_reference(curve):
 
 @pytest.mark.parametrize("curve", CURVES)
 def test_shamir_ladders_and_to_affine_match_the_reference(curve):
-    """shamir_bits (the kernel's ladder) on 12-bit scalars (zero and
-    equal ones among them) reaches the affine point of the reference's
-    double_scalar_mul_bits, to_affine returning it as the reference's
-    does, and the host engine's [k1]G + [k2]Q."""
+    """The kernel's ladder (ops/ecdsa._ladder: G's fixed-base windows, Q's
+    signed windows, secp256k1's GLV halves, Jacobian) on 12-bit scalars
+    (zero and equal ones among them) reaches the affine point of the
+    reference's Shamir ladder double_scalar_mul_bits (its to_affine) and
+    the host engine's [k1]G + [k2]Q; the identity where both are 0."""
     cv, rcv = E.get_curve(curve), RE.get_curve(curve)
     c = RS.CURVES[curve]
     k1 = [0, 5, 4095, 77, 0]
@@ -205,12 +207,19 @@ def test_shamir_ladders_and_to_affine_match_the_reference(curve):
     b2 = np.array([[(k >> (nb - 1 - i)) & 1 for k in k2] for i in range(nb)],
                   dtype=np.int32)
     qs = _points(curve, 5, seed=13)
-    Q, rQ = _port_points(cv, qs), _ref_points(rcv, qs)
-    G, rG = cv.generator((5,), torch.device("cpu")), rcv.generator((5,))
-    got = cv.shamir_bits(torch.as_tensor(b1), G, torch.as_tensor(b2), Q)
+    rQ = _ref_points(rcv, qs)
+    rG = rcv.generator((5,))
+    words = [torch.as_tensor(E.words_of(v).view(np.int32)) for v in
+             (k1, k2, [q[0] for q in qs], [q[1] for q in qs])]
+    t = E._ladder(curve, *words)
+    f = cv.f
+    zi = f.inv(t.z)
+    zi2 = f.mul(zi, zi)
+    x = f.from_mont(f.mul(t.x, zi2))
+    y = f.from_mont(f.mul(t.y, f.mul(zi2, zi)))
+    is_id = f.is_zero(t.z)
     want = rcv.double_scalar_mul_bits(jnp.asarray(b1), rG, jnp.asarray(b2),
                                       rQ)
-    x, y, is_id = cv.to_affine(got)
     rx, ry, rid = rcv.to_affine(want)
     assert is_id.tolist() == np.asarray(rid).tolist() == \
         [True, False, False, False, False]

@@ -16,6 +16,9 @@ T_i = [u1]G + [u2]Q = (X_i : Y_i : Z_i),
     rho_i = (X_i - r_i Z_i) (X_i - (r_i + n) Z_i)      (in F_p)
     check:  sum_i a_i rho_i == 0                        (in F_p)
 
+(the reference's projective form; the port's kernel and plain version
+take Jacobian T_i, x = X / Z^2, and Z_i^2 in place of Z_i)
+
 rho_i is 0 exactly when x(T_i) is r_i or r_i + n (the wrap case, only
 where r_i + n < p; elsewhere the second factor is 1), an identity T_i
 gets rho_i = 1, and the a_i are 128-bit Fiat-Shamir draws bound to the
@@ -28,22 +31,25 @@ Split of labor:
            shapes, 0 < r, s < n, the memoized on-curve pubkey decode,
            one batch inversion for every s^-1), u1 and u2, the
            coefficients, the bisection;
-  device — the ladder, the residuals and the fold (ops/csrc/ecdsa.cu's
-           `ecdsa_rlc`, through ops/ecdsa_cuda.py), or the ladder, a
-           Fermat inversion and the compare (`ecdsa_verify`). CPU
+  device — the ladder (secp256k1's GLV split of u2 included), the
+           residuals and the fold (ops/csrc/ecdsa.cu's `ecdsa_rlc`,
+           through ops/ecdsa_cuda.py), or the ladder, an inversion and
+           the compare (`ecdsa_verify`). CPU
            tensors take the plain versions here, `rlc_fold_plain` and
            `verify_plain`, written on ops/field.py and ops/weierstrass.py.
 
 The kernel's inputs are its own layout: each scalar and each
 coordinate as eight little-endian 32-bit words (8, B) of its canonical
-integer, not Montgomery limbs. The kernels convert to their own
-Montgomery form (R = 2^256) and the plain versions to theirs
-(R = 2^384); the fold's value out is a canonical integer, the same in
-both. The fold's value depends on the projective representation of each
-T_i (rho_i scales with Z_i^2), so `rlc_fold_plain` runs the kernel's
-own ladder (Curve.shamir_bits: G + Q precomputed, a doubling and at most
-one addition a step) and the card holds the value word for word against
-it; against the reference only the verdicts are compared.
+integer, not Montgomery limbs. The kernels keep canonical integers and
+the plain versions their field's Montgomery form (R = 2^384); the fold's
+value out is a canonical integer, the same in both. The fold's value
+depends on the Jacobian representation of each T_i (rho_i scales with
+Z_i^2), so `rlc_fold_plain` runs the kernel's own schedule (`_ladder`:
+G's fixed-base windows, Q's signed windows with secp256k1's GLV halves,
+Curve.fixed_base_sum / window_sum / jac_add, the kernel's formulas and
+exceptional cases) and the card holds the value word for word against
+it; against the reference only the verdicts are compared. The residual
+in Jacobian coordinates is X - r Z^2.
 
 Port divergences, each also marked where it sits:
   * scalars go in as (8, B) words, not the reference's (256, B) bit
@@ -83,7 +89,6 @@ CURVES = {
 }
 
 WORDS = 8            # 32-bit words of a scalar or a coordinate
-BITS = 256
 
 # Per-curve counts of the RLC path: aggregate launches, bisection
 # launches (every launch after a group's first) and lanes launched, on
@@ -102,8 +107,7 @@ def reset_counts() -> None:
 @functools.lru_cache(maxsize=None)
 def get_curve(name: str) -> Curve:
     c = CURVES[name]
-    return Curve(get_field(c["p"]), c["a"], c["b"], c["gx"], c["gy"],
-                 c["n"])
+    return Curve(get_field(c["p"]), c["a"], c["b"])
 
 
 class PreparedEcdsaBatch(NamedTuple):
@@ -260,25 +264,106 @@ def _mont(cv: Curve, words: torch.Tensor) -> torch.Tensor:
     return cv.f.to_mont(_limbs(words))
 
 
-def _bits(words: torch.Tensor) -> torch.Tensor:
-    """(8, ...) words -> (256, ...) bits, msb first."""
-    idx = torch.arange(BITS - 1, -1, -1, device=words.device)
-    shape = (-1,) + (1,) * (words.dim() - 1)
-    return ((words.long() & 0xFFFFFFFF)[idx // 32]
-            >> (idx % 32).reshape(shape)) & 1
-
-
 def _i32(w: torch.Tensor) -> torch.Tensor:
     """Words held in int64 (each in [0, 2^32)) -> int32 of the same bits."""
     return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
 
 
-def _ladder(cv: Curve, u1, u2, qx, qy) -> WPoint:
-    """T = [u1]G + [u2]Q in the kernel's own sequence of formulas."""
-    batch = tuple(qx.shape[1:])
+# csrc/ecdsa.cu's schedule: [u1]G in G_DIGITS signed windows of G_WINDOW
+# bits over G's fixed-base table, [u2]Q in signed windows of Q_WINDOW
+# bits (Q_DIGITS of them: a GLV half on secp256k1, u2 on P-256) over
+# 1Q .. 2^(Q_WINDOW-1) Q
+G_WINDOW, G_DIGITS = 8, 33
+Q_WINDOW = 5
+Q_DIGITS = {"secp256k1": 26, "secp256r1": 52}
+
+
+def signed_digits(k: int, width: int, count: int) -> List[int]:
+    """k as `count` digits in [-2^(width-1), 2^(width-1)), least
+    significant first: window j of k + sum_j 2^(width-1) 2^(width j),
+    less 2^(width-1) (k must be below 2^(width count - 1))."""
+    half = 1 << (width - 1)
+    off = sum(half << (width * j) for j in range(count))
+    kp = k + off
+    if kp >> (width * count):
+        raise ValueError("scalar too large for its windows")
+    mask = (1 << width) - 1
+    return [((kp >> (width * j)) & mask) - half for j in range(count)]
+
+
+@functools.lru_cache(maxsize=None)
+def fixed_base_table(curve_name: str) -> Tuple[Tuple[Tuple[int, int], ...],
+                                               ...]:
+    """G's multiples d 2^(G_WINDOW j) G for windows j < G_DIGITS and
+    d = 1 .. 2^(G_WINDOW-1), affine, from the curve's parameters (the
+    kernel's table, ops/ecdsa_cuda.g_table_words)."""
+    c = CURVES[curve_name]
+    p, a = c["p"], c["a"]
+    rows, base = [], (c["gx"], c["gy"], 1)
+    for _ in range(G_DIGITS):
+        row = [base]
+        for _ in range(1, 1 << (G_WINDOW - 1)):
+            row.append(_scalar._jac_add(row[-1], base, p, a))
+        rows.append(row)
+        for _ in range(G_WINDOW):
+            base = _scalar._jac_double(base, p, a)
+    flat = _scalar._jac_batch_to_affine([q for r in rows for q in r], p)
+    n = 1 << (G_WINDOW - 1)
+    return tuple(tuple(flat[j * n:(j + 1) * n]) for j in range(G_DIGITS))
+
+
+@functools.lru_cache(maxsize=8)
+def _g_limbs(curve_name: str, dev: torch.device
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fixed_base_table as (windows, entries, 24) Montgomery limbs, x
+    and y."""
+    f = get_curve(curve_name).f
+    tab = fixed_base_table(curve_name)
+    return tuple(torch.as_tensor(np.array([[f.from_int(pt[k]) for pt in row]
+                                           for row in tab]), device=dev)
+                 for k in (0, 1))
+
+
+def _ints(words: torch.Tensor) -> List[int]:
+    """(8, B) words -> B Python ints."""
+    w = (words.long() & 0xFFFFFFFF).cpu().numpy()
+    return [int_of(w[:, i]) for i in range(w.shape[1])]
+
+
+def _digit_rows(scalars: Sequence[int], width: int, count: int,
+                dev: torch.device) -> torch.Tensor:
+    return torch.tensor([signed_digits(k, width, count) for k in scalars],
+                        dtype=torch.int64, device=dev).T.contiguous()
+
+
+def _ladder(curve_name: str, u1, u2, qx, qy) -> WPoint:
+    """T = [u2]Q + [u1]G, Jacobian, in the kernel's own sequence of
+    formulas: its two parts (Curve.window_sum, Curve.fixed_base_sum) and
+    the addition that joins them. The digits and secp256k1's GLV split
+    (scalar._glv_split, which the kernel's glv_split computes exactly)
+    are host integers here."""
+    cv = get_curve(curve_name)
+    dev = qx.device
     q = cv.from_affine(_mont(cv, qx), _mont(cv, qy))
-    return cv.shamir_bits(_bits(u1), cv.generator(batch, qx.device),
-                          _bits(u2), q)
+    k2 = _ints(u2)
+    glv = _scalar._GLV_PARAMS.get(curve_name)
+    nq = Q_DIGITS[curve_name]
+    if glv is not None:
+        n = CURVES[curve_name]["n"]
+        halves = [_scalar._glv_split(k, glv, n) for k in k2]
+        digits = [_digit_rows([h[i] for h in halves], Q_WINDOW, nq, dev)
+                  for i in (0, 2)]
+        negs = [torch.tensor([h[i] for h in halves], dtype=torch.bool,
+                             device=dev) for i in (1, 3)]
+        qpart = cv.window_sum(q, digits, negs, Q_WINDOW, glv["beta"])
+    else:
+        qpart = cv.window_sum(q, [_digit_rows(k2, Q_WINDOW, nq, dev)],
+                              [torch.zeros(len(k2), dtype=torch.bool,
+                                           device=dev)], Q_WINDOW)
+    gx, gy = _g_limbs(curve_name, dev)
+    gpart = cv.fixed_base_sum(gx, gy, _digit_rows(_ints(u1), G_WINDOW,
+                                                  G_DIGITS, dev))
+    return cv.jac_add(qpart, gpart)
 
 
 def rlc_fold_plain(curve_name: str, u1: torch.Tensor, u2: torch.Tensor,
@@ -292,14 +377,15 @@ def rlc_fold_plain(curve_name: str, u1: torch.Tensor, u2: torch.Tensor,
     cv = get_curve(curve_name)
     f = cv.f
     batch, dev = tuple(qx.shape[1:]), qx.device
-    t = _ladder(cv, u1, u2, qx, qy)
+    t = _ladder(curve_name, u1, u2, qx, qy)
     one = f.one(batch, dev)
-    # projective x-residuals: zero iff x(T) == r (resp. r+n)
-    d1 = f.sub(t.x, f.mul(_mont(cv, xr), t.z))
-    d2 = f.select(wrap_ok, f.sub(t.x, f.mul(_mont(cv, xrpn), t.z)), one)
+    zz = f.mul(t.z, t.z)
+    # Jacobian x-residuals: zero iff x(T) == r (resp. r+n)
+    d1 = f.sub(t.x, f.mul(_mont(cv, xr), zz))
+    d2 = f.select(wrap_ok, f.sub(t.x, f.mul(_mont(cv, xrpn), zz)), one)
     rho = f.mul(d1, d2)
-    # the identity (Z=0) encodes as (0:Y:0): X == 0 would make d1 vanish
-    # spuriously, and the identity is a reject — pin rho nonzero
+    # the identity (Z=0) would make d1 vanish spuriously where X == 0,
+    # and the identity is a reject — pin rho nonzero
     rho = f.select(f.is_zero(t.z), one, rho)
     # host-invalid lanes must not poison the aggregate
     rho = f.select(active, rho, f.zero(batch, dev))
@@ -315,10 +401,14 @@ def verify_plain(curve_name: str, u1: torch.Tensor, u2: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The per-item verify kernel's function in plain PyTorch (reference
     make_verify_kernel.kernel, ecdsa.py:169-184): (8, B) words ->
-    (verdicts (B,) bool, affine x of T as (8, B) int32 words; 0 for the
-    identity)."""
+    (verdicts (B,) bool, affine x = X / Z^2 of T as (8, B) int32 words;
+    0 for the identity, whose inverse of Z is 0)."""
     cv = get_curve(curve_name)
-    x, _, is_id = cv.to_affine(_ladder(cv, u1, u2, qx, qy))
+    f = cv.f
+    t = _ladder(curve_name, u1, u2, qx, qy)
+    zi = f.inv(t.z)
+    x = f.from_mont(f.mul(t.x, f.mul(zi, zi)))
+    is_id = f.is_zero(t.z)
     xw = _i32(to_words(x)[:WORDS])
     match = (xw == r).all(0) | (xw == r_plus_n).all(0)
     return match & ~is_id, xw

@@ -11,17 +11,21 @@ qx, qy, r, r_plus_n)` takes six int32 (8, B) tensors and returns
 (verdicts bool (B,), affine x int32 (8, B)). Built by nvcc at first use
 (ops/_build.py) and bound with ctypes. The wrapper checks device, dtype,
 shape and contiguity, allocates the outputs and the fold's scratch (one
-partial sum a CTA of 64 lanes) with torch.empty, launches on the
-caller's current stream, raises if cudaGetLastError reports a failed
-launch, and counts its launches in LAUNCHES (one per call, where the
-kernels are launched, and nowhere else; `rlc` is two kernels, the fold
-and the sum of its partials). There is no fallback: CPU tensors are
+partial sum a CTA) with torch.empty, plans the CTAs (`lanes_per_cta`),
+passes G's fixed-base table (`g_table`: made from the curve's
+parameters and copied to the card once a curve and device), launches on
+the caller's current stream, raises if cudaGetLastError reports a
+failed launch, and counts its launches in LAUNCHES (one per call, where
+the kernels are launched, and nowhere else; `rlc` is two kernels, the
+fold and the sum of its partials). There is no fallback: CPU tensors are
 refused here and take the plain versions through
 ops/ecdsa.rlc_fold_kernel / verify_kernel.
 
-Also here: the work the function needs on given scalars (`field_ops`,
-`work`) for the bound chip_smoke.py prints, and the kernel's own
-products (`kernel_field_muls`).
+Also here: the kernel's clock64 probe (`probe`), the work the function
+needs on given scalars (`field_ops`, `work`) for the bound chip_smoke.py
+prints, and what the kernel runs (`kernel_counts`: its field products
+and its longest chain, which `chain_floor_ms` prices at the probe's
+cycles).
 """
 from __future__ import annotations
 
@@ -38,16 +42,18 @@ LAUNCHES: Dict[str, int] = {"ecdsa_rlc": 0, "ecdsa_verify": 0}
 
 SOURCES = ("ecdsa.cu",)
 CURVE_INDEX = {"secp256k1": 0, "secp256r1": 1}
-CTA = 64            # lanes a CTA (EC_CTA in csrc/ecdsa.cu)
+LPC = 16            # lanes a CTA at most (EC_LPC in csrc/ecdsa.cu)
 
-# The kernel's own: one complete addition (csrc/ecdsa.cu pt_add) is 14
-# products for a = 0 and 18 for a = -3; it serves the doubling too. Each
-# is a CIOS product of eight 32-bit words: 64 a_i b_j and 64 m p_j wide
-# multiply-adds (each IMAD.WIDE counted as two 32-bit operations) and 8
-# low multiplies for m.
-MULS_PT_ADD = {"secp256k1": 14, "secp256r1": 18}
-OPS_PER_FIELD_MUL = 2 * (64 + 64) + 8
-
+# What the kernel's formulas cost in field products (squarings counted as
+# products): a Jacobian doubling 3M + 4S (a = 0) or 4M + 4S (a = -3), an
+# addition 12M + 4S, a mixed addition 8M + 3S; phi(Q)'s X one more.
+MULS_DBL = {"secp256k1": 7, "secp256r1": 8}
+MULS_ADD = 16
+MULS_MADD = 11
+# The inversion of ecdsa_verify: a^1 .. a^15 (14 products), then 4
+# squarings a nibble of p - 2 below its top one and a product a nonzero
+# nibble below it.
+INV_TABLE = 14
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -56,13 +62,46 @@ _I = ctypes.c_int
 def library() -> ctypes.CDLL:
     """Build (first use) and bind the kernel library."""
     lib = _build.load("ecdsa", SOURCES)
-    lib.ecdsa_rlc_launch.argtypes = [_I] + [_P] * 9 + [_I] + [_P] * 3
+    lib.ecdsa_rlc_launch.argtypes = [_I] + [_P] * 10 + [_I, _I] + [_P] * 3
     lib.ecdsa_rlc_launch.restype = _I
-    lib.ecdsa_verify_launch.argtypes = [_I] + [_P] * 6 + [_I] + [_P] * 3
+    lib.ecdsa_verify_launch.argtypes = [_I] + [_P] * 7 + [_I, _I] + [_P] * 3
     lib.ecdsa_verify_launch.restype = _I
+    lib.ecdsa_probe_launch.argtypes = [_I, _I] + [_P] * 4
+    lib.ecdsa_probe_launch.restype = _I
     lib.ecdsa_error_string.argtypes = [_I]
     lib.ecdsa_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def lanes_per_cta(b: int, sms: int) -> int:
+    """Lanes a CTA: as few as spread b lanes over the card's SMs (csrc's
+    ec_lanes_per_cta), at most LPC."""
+    return min(max(-(-b // max(sms, 1)), 1), LPC)
+
+
+@functools.lru_cache(maxsize=None)
+def g_table_words(curve_name: str) -> np.ndarray:
+    """G's fixed-base table in the kernel's layout: window j, digit d at
+    words (j 128 + d - 1) 16, affine x then y, canonical (uint32)."""
+    from tpubft_torch.ops.ecdsa import fixed_base_table, words_of
+    pts = [pt for row in fixed_base_table(curve_name) for pt in row]
+    xs, ys = words_of([x for x, _ in pts]), words_of([y for _, y in pts])
+    return np.ascontiguousarray(np.concatenate([xs.T, ys.T], 1).reshape(-1))
+
+
+@functools.lru_cache(maxsize=None)
+def g_table(curve_name: str, dev: torch.device) -> torch.Tensor:
+    """g_table_words on the card, copied once a curve and device."""
+    return torch.from_numpy(g_table_words(curve_name).view(np.int32)).to(dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def reset_launches() -> None:
@@ -119,14 +158,14 @@ def rlc(curve_name: str, u1, u2, qx, qy, xr, xrpn, wrap_ok, active, a
     _require(wrap_ok, "wrap_ok", torch.bool, (b,), dev)
     _require(active, "active", torch.bool, (b,), dev)
     lib = library()
+    gtab = g_table(curve_name, dev)
+    lpc = lanes_per_cta(b, _sms(dev))
     out = torch.empty(8, dtype=torch.int32, device=dev)
-    partial = torch.empty((b + CTA - 1) // CTA * 8, dtype=torch.int32,
-                          device=dev)
+    partial = torch.empty(-(-b // lpc) * 8, dtype=torch.int32, device=dev)
     err = lib.ecdsa_rlc_launch(
         curve, *(t.data_ptr() for t in (u1, u2, qx, qy, xr, xrpn, wrap_ok,
-                                        active, a)),
-        b, partial.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+                                        active, a, gtab)),
+        b, lpc, partial.data_ptr(), out.data_ptr(), _stream(dev))
     _raise(lib, err, "ecdsa_rlc")
     LAUNCHES["ecdsa_rlc"] += 1
     return out
@@ -140,12 +179,13 @@ def verify(curve_name: str, u1, u2, qx, qy, r, r_plus_n
     dev, b = _check_words((u1, u2, qx, qy, r, r_plus_n),
                           ("u1", "u2", "qx", "qy", "r", "r_plus_n"))
     lib = library()
+    gtab = g_table(curve_name, dev)
     ok = torch.empty(b, dtype=torch.bool, device=dev)
     x = torch.empty((8, b), dtype=torch.int32, device=dev)
     err = lib.ecdsa_verify_launch(
-        curve, *(t.data_ptr() for t in (u1, u2, qx, qy, r, r_plus_n)), b,
-        ok.data_ptr(), x.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        curve, *(t.data_ptr() for t in (u1, u2, qx, qy, r, r_plus_n, gtab)),
+        b, lanes_per_cta(b, _sms(dev)), ok.data_ptr(), x.data_ptr(),
+        _stream(dev))
     _raise(lib, err, "ecdsa_verify")
     LAUNCHES["ecdsa_verify"] += 1
     return ok, x
@@ -307,27 +347,120 @@ def field_ops(curve_name: str, u1, u2, active, wrap_ok=None,
     return muls, sqrs
 
 
+def _lane_steps(curve_name: str, k1: int, k2: int, live: bool,
+                wrap: bool, per_item: bool) -> Dict[str, int]:
+    """What one lane's two threads run (csrc/ecdsa.cu) on these scalars,
+    as formula calls and single products: `q` the [u2]Q thread up to the
+    join, `g` the [u1]G thread, `tail` the join and the lane's end. An
+    addition into the identity (a chain's first nonzero digit) computes
+    nothing but phi(Q)'s X; an exceptional addition (P = Q inside a
+    chain, a crafted lane's) is counted as an addition."""
+    from tpubft_torch.crypto import scalar
+    from tpubft_torch.ops import ecdsa as E
+    zero = {"dbl": 0, "add": 0, "madd": 0, "mul": 0}
+    out = {"q": dict(zero), "g": dict(zero), "tail": dict(zero)}
+    if not live:
+        return out
+    n = E.CURVES[curve_name]["n"]
+    glv = scalar._GLV_PARAMS.get(curve_name)
+    nq = E.Q_DIGITS[curve_name]
+    cols = ([E.signed_digits(h, E.Q_WINDOW, nq) for h in
+             scalar._glv_split(k2, glv, n)[::2]] if glv is not None
+            else [E.signed_digits(k2, E.Q_WINDOW, nq)])
+    q = out["q"]
+    half = 1 << (E.Q_WINDOW - 1)
+    q["dbl"], q["madd"] = half // 2, half // 2 - 1          # the table
+    started = False
+    for j in range(nq - 1, -1, -1):
+        if j < nq - 1:
+            q["dbl"] += E.Q_WINDOW
+        for c, dig in enumerate(cols):
+            if dig[j]:
+                q["mul"] += c            # phi's X
+                q["add"] += started
+                started = True
+    g = out["g"]
+    nz = sum(d != 0 for d in E.signed_digits(k1, E.G_WINDOW, E.G_DIGITS))
+    g["madd"] = max(nz - 1, 0)
+    t = out["tail"]
+    t["add"] = int(started and nz > 0)
+    if per_item:
+        p = E.CURVES[curve_name]["p"]
+        nib = [(p - 2) >> (4 * j) & 15 for j in range(63, -1, -1)]
+        t["mul"] = INV_TABLE + 4 * (len(nib) - 1) + sum(
+            v != 0 for v in nib[1:]) + 2
+    else:
+        t["mul"] = 4 + int(wrap)
+    return out
+
+
+def _muls(curve_name: str, steps: Dict[str, int]) -> int:
+    return (steps["dbl"] * MULS_DBL[curve_name] + steps["add"] * MULS_ADD
+            + steps["madd"] * MULS_MADD + steps["mul"])
+
+
+def kernel_counts(curve_name: str, u1, u2, active, wrap_ok=None,
+                  per_item: bool = False) -> Dict:
+    """What the kernel runs on these inputs: `field_muls`, its field
+    products (squarings included) over every lane (the RLC launch's
+    inactive lanes run nothing; the verify launch runs every lane), and
+    `chain`, the formula calls and single products on the longest
+    dependent path of a lane (the longer of its two threads, then the
+    join and the end)."""
+    wrap = np.zeros(len(active), bool) if wrap_ok is None \
+        else np.asarray(wrap_ok)
+    total, chain, worst = 0, None, -1
+    for k1, k2, on, w in zip(_ints(u1), _ints(u2), np.asarray(active),
+                             wrap):
+        st = _lane_steps(curve_name, k1, k2, bool(on) or per_item,
+                         bool(w), per_item)
+        total += sum(_muls(curve_name, v) for v in st.values())
+        path = max(st["q"], st["g"], key=lambda v: _muls(curve_name, v))
+        path = {k: path[k] + st["tail"][k] for k in path}
+        if _muls(curve_name, path) > worst:
+            chain, worst = path, _muls(curve_name, path)
+    return {"field_muls": total, "chain": chain}
+
+
 def kernel_field_muls(curve_name: str, u1, u2, active, wrap_ok=None,
                       per_item: bool = False) -> int:
-    """Field multiplies the kernel runs on these inputs: per active lane
-    two conversions of Q, one complete addition for G + Q, 256 for the
-    doublings and one a nonzero digit; then the RLC lane's conversions
-    and residual products (6, 2 more where wrap_ok) or the verify lane's
-    Fermat inversion (256 squarings and a product a set bit of p - 2)
-    and 2 for x; the RLC sum's conversion out once."""
-    from tpubft_torch.ops.ecdsa import CURVES
-    pt = MULS_PT_ADD[curve_name]
-    pm2 = bin(CURVES[curve_name]["p"] - 2).count("1")
-    wrap = np.zeros(len(active), bool) if wrap_ok is None else wrap_ok
-    total = 0 if per_item else 1
-    for k1, k2, on, w in zip(_ints(u1), _ints(u2), np.asarray(active),
-                             np.asarray(wrap)):
-        if not on and not per_item:
-            continue
-        digits = bin(k1 | k2).count("1")
-        total += 2 + pt * (1 + 256 + digits)
-        total += (256 + pm2 + 2) if per_item else (6 + 2 * int(w))
-    return total
+    """Field products (squarings included) the kernel runs on these
+    inputs (`kernel_counts`)."""
+    return kernel_counts(curve_name, u1, u2, active, wrap_ok,
+                         per_item)["field_muls"]
+
+
+def chain_floor_ms(chain: Dict[str, int], probed: Dict,
+                   sm_clock_mhz: float) -> float:
+    """The least time a launch takes: its longest chain (`kernel_counts`)
+    at the probe's cycles a doubling, addition, mixed addition and
+    product, at the SM clock."""
+    cycles = (chain["dbl"] * probed["cycles_per_dbl"]
+              + chain["add"] * probed["cycles_per_add"]
+              + chain["madd"] * probed["cycles_per_madd"]
+              + chain["mul"] * probed["cycles_per_field_mul"])
+    return cycles / (sm_clock_mhz * 1e3)
+
+
+def probe(curve_name: str, dev: torch.device, iters: int = 1024) -> Dict:
+    """clock64 cycles on one thread of the card (csrc's
+    ecdsa_probe_kernel): a product, a squaring, a Montgomery product and
+    a step of two products side by side (each of `iters` dependent ones),
+    a doubling, an addition and a mixed addition (each of iters / 8)."""
+    lib = library()
+    stamps = torch.zeros(7, dtype=torch.int64, device=dev)
+    sink = torch.zeros(8, dtype=torch.int32, device=dev)
+    _raise(lib, lib.ecdsa_probe_launch(
+        _curve(curve_name), iters, g_table(curve_name, dev).data_ptr(),
+        stamps.data_ptr(), sink.data_ptr(), _stream(dev)), "ecdsa_probe")
+    mul, sqr, mont, pair, dbl, add, madd = stamps.tolist()
+    steps = iters // 8
+    return {"curve": curve_name, "cycles_per_field_mul": mul / iters,
+            "cycles_per_sqr": sqr / iters,
+            "cycles_per_mont_mul": mont / iters,
+            "cycles_per_mul_pair": pair / iters,
+            "cycles_per_dbl": dbl / steps, "cycles_per_add": add / steps,
+            "cycles_per_madd": madd / steps}
 
 
 def work(curve_name: str, u1, u2, active, wrap_ok=None,

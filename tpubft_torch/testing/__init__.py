@@ -202,6 +202,47 @@ def ecdsa_wrap_lanes(curve: str):
     return rlc, verify, (xt, [True, False])
 
 
+def ecdsa_exceptional_lanes(curve: str):
+    """Crafted inputs of each ECDSA kernel that reach the exceptional
+    cases of its Jacobian additions (fed to the kernel directly: the
+    precheck would refuse some): Q = G with u1 = u2 (the join adds equal
+    points: a doubling), Q = G with u2 = n - u1 and Q = -G with u2 = u1
+    (the join adds inverses: the identity), u1 = 0, u2 = 0, u1 = u2 = 0,
+    and Q = G with u1 = u2 again with r off by one. r is x(T) mod n where
+    T is not the identity. Returns (verify, rlc, want, xs): verify_kernel's
+    arguments after the curve, rlc_fold_kernel's (every lane active, the
+    wrap factor on the first three where r + n < p, odd coefficients),
+    the expected verdicts and the expected affine x (0 for the
+    identity)."""
+    from tpubft_torch.ops import ecdsa as ops_ecdsa
+    c = scalar.CURVES[curve]
+    p, n = c["p"], c["n"]
+    g, gneg = (c["gx"], c["gy"]), (c["gx"], p - c["gy"])
+    q = scalar._jac_to_affine(scalar._mul_g(0xC0FFEE, curve), p)
+    u = 0x1234567890ABCDEF1234567890ABCDEF
+    lanes = [(u, u, g, 2 * u), (u, n - u, g, 0), (u, u, gneg, 0),
+             (0, u, q, u * 0xC0FFEE), (u, 0, q, u), (0, 0, q, 0),
+             (u, u, g, 2 * u)]
+    rows, want, xs = [], [], []
+    for i, (u1, u2, pt, k) in enumerate(lanes):
+        t = scalar._jac_to_affine(scalar._mul_g(k % n, curve), p) \
+            if k % n else None
+        r = t[0] % n if t else 1
+        if i == len(lanes) - 1:
+            r = (r + 1) % n
+        rows.append((u1, u2, pt[0], pt[1], r, r + n if r + n < p else p))
+        want.append(bool(t) and i != len(lanes) - 1)
+        xs.append(t[0] if t else 0)
+    w = ops_ecdsa.words_of
+    verify = tuple(w([row[k] for row in rows]) for k in range(6))
+    wrap = np.array([i < 3 and row[4] + n < p for i, row in enumerate(rows)])
+    rlc = verify[:5] + (w([row[4] + n if ok else 0
+                           for row, ok in zip(rows, wrap)]), wrap,
+                        np.ones(len(rows), bool),
+                        w([2 * i + 1 for i in range(len(rows))]))
+    return verify, rlc, want, xs
+
+
 def kvbcbench_rows(blocks: int, keys_per_block: int = 8, big_every: int = 0
                    ) -> List[List[Tuple[str, bytes, bytes, str]]]:
     """Blocks b = 0 .. blocks-1 of the reference's kvbcbench:

@@ -5,10 +5,17 @@ versions, the host scalar engine and the reference's verdict rules.
     python -m tpubft_torch.tools.ecdsa_probe --crossover 1 2 3 4 6 8
     python -m tpubft_torch.tools.ecdsa_probe --cluster 1073741824 2 12 24
 
-For each curve (secp256k1, P-256) and batch B, one JSON line (`measure`,
-which chip_smoke.py's kernel rows call too): a seeded corpus of B
-signatures of 16 principals with forged items, plus the two crafted
-wrap-case lanes of testing.ecdsa_wrap_lanes.
+After the build line (ptxas's registers and stack frames), one line a
+curve from the kernel's clock64 probe (ops/ecdsa_cuda.probe: cycles of a
+product, a squaring, a Montgomery product, a pair of products, a
+doubling, an addition and a mixed addition on one thread). Then for
+each curve (secp256k1, P-256) and batch B, one JSON line (`measure`,
+which chip_smoke.py's kernel rows call too, and here each kernel's
+chain floor and bound at this run's probe cycles and SM clock:
+`chain_floor_ms`, `bound_ms`, `verify_chain_floor_ms`,
+`verify_bound_ms`): a seeded corpus of B signatures of 16 principals
+with forged items, plus the two crafted wrap-case lanes of
+testing.ecdsa_wrap_lanes.
 
   ecdsa_rlc     the fold of every lane (forged and wrap lanes in it)
                 against rlc_fold_plain on the same tensors, word by word
@@ -28,7 +35,8 @@ wrap-case lanes of testing.ecdsa_wrap_lanes.
                 work the function needs (ops/ecdsa_cuda.work: `ops`,
                 `bytes`; its products and squarings `field_muls`,
                 `field_sqrs`) beside the field products the kernel runs
-                (`kernel_field_muls`).
+                (`kernel_field_muls`) and its longest chain
+                (`kernel_chain`, ops/ecdsa_cuda.kernel_counts).
 
 With --crossover, one JSON object instead (`crossover`): the device
 route against the host engine end to end at each batch, and the least
@@ -122,13 +130,15 @@ def measure(curve: str, b: int, dev: torch.device, seed: int = 0,
     fold = (curve, ccols[0], ccols[1], ccols[7], ccols[6])
     out["ops"], out["bytes"] = ec.work(*fold)
     out["field_muls"], out["field_sqrs"] = ec.field_ops(*fold)
-    out["kernel_field_muls"] = ec.kernel_field_muls(*fold)
+    kc = ec.kernel_counts(*fold)
+    out["kernel_field_muls"], out["kernel_chain"] = kc["field_muls"], kc["chain"]
     every = (curve, vcols[0], vcols[1], np.ones(b + 2, bool))
     out["verify_ops"], out["verify_bytes"] = ec.work(*every, per_item=True)
     out["verify_field_muls"], out["verify_field_sqrs"] = ec.field_ops(
         *every, per_item=True)
-    out["verify_kernel_field_muls"] = ec.kernel_field_muls(*every,
-                                                           per_item=True)
+    kc = ec.kernel_counts(*every, per_item=True)
+    out["verify_kernel_field_muls"] = kc["field_muls"]
+    out["verify_kernel_chain"] = kc["chain"]
     return out
 
 
@@ -173,6 +183,17 @@ def crossover(curves: Sequence[str], batches: Sequence[int],
             break
         cross = b
     return {"rows": rows, "crossover": cross}
+
+
+def _chip_smoke():
+    """The repository's chip_smoke.py (its bound and nvidia-smi
+    helpers), imported from the checkout's root."""
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[2])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
 
 
 _CLUSTER_RUN = """
@@ -254,10 +275,20 @@ def main(argv=None) -> int:
                       "ptxas": _build.ptxas_functions(
                           _build.ptxas_report.get("ecdsa", ""))}),
           flush=True)
+    probes = {curve: ecdsa_cuda.probe(curve, dev) for curve in CURVES}
+    for curve in CURVES:
+        print(json.dumps(probes[curve]), flush=True)
+    smoke = _chip_smoke()
+    clock = float(smoke.nvidia_smi("clocks.max.sm").split()[0])
     bad = []
     for curve in CURVES:
         for b in args.batches:
             row = measure(curve, b, dev, seed=b, reps=args.reps)
+            for pre in ("", "verify_"):
+                row[pre + "chain_floor_ms"] = ecdsa_cuda.chain_floor_ms(
+                    row[pre + "kernel_chain"], probes[curve], clock)
+                row[pre + "bound_ms"] = smoke.work_bound_ms(
+                    row[pre + "ops"], row[pre + "bytes"], clock)["bound_ms"]
             print(json.dumps(row), flush=True)
             bad += [f"{curve} B={b}: {p}" for p in problems(row)]
     if bad:
