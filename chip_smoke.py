@@ -53,10 +53,10 @@ line each; any failure exits non-zero:
            (testing.InProcessCluster, the counter app) on the card at
            BASELINE config 1's widths, 100 client principals and the
            reference's batching defaults, crypto_backend "cuda"; the
-           durability pipeline is off (kept as in the earlier runs) and
-           the autotuner too (not ported, ROADMAP A.8). 100 clients send
-           counter writes in a
-           closed loop, one outstanding each, until 3,000 have committed,
+           durability pipeline is off (kept as in the earlier runs); the
+           autotuner runs at its default (a poll a second). 100 clients
+           send counter writes in a closed loop, one outstanding each,
+           until 3,000 have committed,
            within 120 s. Every reply decodes and each client's replies
            increase, the four counters equal the sum of the adds and
            last_executed agrees, the verify kernel was launched on the
@@ -75,7 +75,7 @@ line each; any failure exits non-zero:
            defaults, state transfer configured as KvbcReplica deploys
            it (from the replica's config: ranges of 64 blocks, 4 in
            flight, a 1 s retry timeout), crypto_backend "cuda", the
-           autotuner off (not ported), 100 client principals, the
+           autotuner at its default, 100 client principals, the
            reference's checkpoint and work windows (150 and 300). Load:
            100 closed-loop SkvbcClients write kvbcbench blocks (the nine
            keys of testing.kvbcbench_rows, under each client's key
@@ -138,8 +138,8 @@ line each; any failure exits non-zero:
            it: 31 replicas (f=10) of the ledger_replica phase's cluster,
            threshold-bls certificates, secp256k1 clients, the view-change
            timer at 30 s, the fast-path timeout at 5 s, concurrency 1,
-           crypto_backend "cuda", the autotuner off (not ported), every
-           other setting at its default (device_min_verify_batch 32
+           crypto_backend "cuda", the autotuner and every other setting
+           at its default (device_min_verify_batch 32
            gates the Ed25519 items; the ECDSA groups ride the RLC kernel
            from crypto/cuda.ecdsa_crossover's lanes on).
            16 closed-loop clients write kvbcbench blocks until 300 commit
@@ -152,6 +152,21 @@ line each; any failure exits non-zero:
            launched, every key reads back its last acknowledged value,
            the 31 ledgers agree at their common head and nothing
            degraded;
+  offload  the verified offload tier: two helper processes on
+           127.0.0.1 (python -m tpubft_torch.offload.helper), one honest
+           and one liar (wrong-on-curve), the pool configured as a
+           replica configures it from offload_helpers. The bls_plane's
+           64-slot threshold flush (320 shares) and multisig flush, clean,
+           with offload off, honest and lying: equal certificates (and
+           equal to the host classes'), the honest leases verified with
+           no MSM launch, the liar costing one local re-run (one bls_msm
+           launch), quarantined and shown in the health payload's
+           offload section; the flush with two bad slots, off and honest:
+           equal, one re-run, nobody quarantined. The ecdsa_plane's 8
+           PrePrepares through SigManager, off, honest and lying: equal
+           verdicts, RLC launches per curve on each route (honest: one
+           re-fold a curve group, no bisection), lease and soundness
+           microseconds. The helpers are stopped, and gone, at the end;
   ledger   config 1's categorized KVBC ledger at the kvbcbench block shape
            (800 blocks of 8 versioned keys and one Merkle-proven key) on a
            MemoryDB with use_device_hashing=True, against the same ledger
@@ -209,6 +224,14 @@ line each; any failure exits non-zero:
            items (scalar.ecdsa_verify_batch) as the yardstick that
            decides the crossover;
   done     the script's wall time from the first phase on.
+
+Every cluster phase runs the autotuner at its default (a poll a second)
+and prints its report (tuner_report): polls, decisions, replica 0's knob
+values, the knobs that moved and where, the last five decisions (knob,
+old, new, source) and where the process-wide ECDSA crossover ended; the
+crossover override is cleared after each cluster. The bls_msm and
+ecdsa_rlc rows of the kernels line count the offload phase's launches as
+a path of their own.
 
 Then the card's name and power limit as nvidia-smi reports them, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -779,8 +802,8 @@ REPLICA_CONFIG = dict(
     work_window_size=300, crypto_backend="cuda",
     # the counter phase keeps the durability pipeline off, so that its
     # numbers stay comparable with the earlier runs PERF.md keeps (the
-    # ledger_replica phase runs it); the autotuner is not ported (A.8)
-    durability_pipeline=False, autotune_enabled=False)
+    # ledger_replica phase runs it); the autotuner runs at its default
+    durability_pipeline=False)
 
 
 def percentile(sorted_ms, q: float) -> float:
@@ -890,6 +913,54 @@ def device_health(reps, br0: dict) -> dict:
             "breaker_fast_fails": br1["fast_fails"] - br0["fast_fails"]}
 
 
+def tuner_report(reps, last: int = 5, clear: bool = True) -> dict:
+    """The replicas' autotuners after a load: polls and decisions summed
+    over the replicas, replica 0's final knob values, which knobs moved
+    on any replica (with each replica's final value), the last `last`
+    decisions of the cluster (knob, old, new, source), and where the
+    process-wide ECDSA crossover ended (every replica's
+    `ecdsa_crossover_b` knob writes it; the last write wins). The
+    crossover override is then cleared (unless `clear` is false), so
+    that later phases start from the default again, as a fresh process
+    would."""
+    from tpubft_torch.crypto import cuda as crypto_cuda
+    tuners = [r.tuning for r in reps]
+    if not reps[0].cfg.autotune_enabled:
+        # turned off by the caller (tools/tuner_ab.py's other arm)
+        return {"replicas_tuned": 0, "enabled": False}
+    if any(t is None for t in tuners):
+        raise AssertionError("a replica was built without its tuner")
+    snaps = [t.registry.snapshot() for t in tuners]
+    moved = sorted({n for s in snaps for n, k in s.items() if k["changes"]})
+    decisions = sorted(((d["ts"], r.id, d) for r in reps
+                        for d in r.tuning.decisions(limit=256)),
+                       key=lambda x: (x[0], x[1]))
+    out = {"interval_ms": reps[0].cfg.autotune_interval_ms,
+           "cooldown_ms": reps[0].cfg.autotune_cooldown_ms,
+           "replicas_tuned": len(tuners),
+           "polls": sum(t.m_polls.value for t in tuners),
+           "decisions": sum(t.m_steps.value for t in tuners),
+           "degraded_resets": sum(t.m_resets.value for t in tuners),
+           "knobs_r0": {n: k["value"] for n, k in snaps[0].items()},
+           "knobs_moved": {n: [s[n]["value"] for s in snaps if n in s]
+                           for n in moved},
+           "last_decisions": [
+               {"rid": rid, "knob": d["knob"], "old": d["old"],
+                "new": d["new"], "source": d["source"]}
+               for _ts, rid, d in decisions[-last:]],
+           "ecdsa_crossover_end": crypto_cuda.ecdsa_crossover()}
+    if clear:
+        crypto_cuda.set_ecdsa_crossover(None)
+    return out
+
+
+def tuner_problems(t: dict) -> list:
+    if t["replicas_tuned"] and t["polls"] < t["replicas_tuned"]:
+        return [f"the tuners polled {t['polls']} times over "
+                f"{t['replicas_tuned']} replicas"]
+    return []
+
+
 def device_health_problems(h: dict) -> list:
     problems = []
     if any(h["sig_degraded"]) or any(h["multisig_degraded"]):
@@ -982,6 +1053,7 @@ def phase_replica(torch, dev, clients: int = 100, target: int = 3000,
                            for r in range(cluster.n))
         fast_commits = sum(cluster.metric(r, "counters", "fast_path_commits")
                            for r in range(cluster.n))
+        tuner = tuner_report(reps)
     finally:
         cluster.stop()
     out = {"phase": "replica", "committed": done,
@@ -998,11 +1070,11 @@ def phase_replica(torch, dev, clients: int = 100, target: int = 3000,
            "profile": profile,
            "counter_values": values, "sum_of_adds": adds,
            "last_executed": last_exec, "replies_increase": monotone,
-           **health,
+           **health, "tuner": tuner,
            "errors": loop.errors[:5],
            "wall_s": time.monotonic() - t_phase}
     emit(out)
-    problems = []
+    problems = tuner_problems(tuner)
     if loop.errors:
         problems.append(f"{len(loop.errors)} clients failed: "
                         f"{loop.errors[:3]}")
@@ -1031,9 +1103,7 @@ LEDGER_REPLICA_CONFIG = dict(
     durability_pipeline=True, durability_group_max=8,
     durability_window_us=1000, checkpoint_window_size=150,
     work_window_size=300, state_transfer_batch_blocks=64,
-    st_window_ranges=4, st_device_digest_threshold=16,
-    # the autotuner is not ported (ROADMAP A.8)
-    autotune_enabled=False)
+    st_window_ranges=4, st_device_digest_threshold=16)
 
 
 class _KvbcbenchWrites:
@@ -1370,6 +1440,8 @@ def phase_ledger_replica(torch, dev, clients: int = 100,
         if load["verify_launches"] < 1:
             problems.append("the verify kernel was not launched on "
                             "admission")
+        out["tuner"] = tuner_report(list(cluster.replicas.values()))
+        problems += tuner_problems(out["tuner"])
     finally:
         recording[0] = False
         digests.window_digests = real_window
@@ -1614,6 +1686,10 @@ def phase_bls_plane(torch, dev, slots: int = BLS_SLOTS) -> dict:
         problems.append(f"device breaker {out['breaker']}")
     if problems:
         raise AssertionError("; ".join(problems))
+    # config 2's keys and signers for the offload phase
+    out["offload_inputs"] = {"system": system, "k": k, "signers": signers,
+                             "ms_sys": ms_sys, "ms_signers": ms_signers,
+                             "bad_jobs": jobs}
     out["segments"] = {
         "flush": [(ids_pts, bls.lagrange_coeffs_at_zero(ids))
                   for ids, ids_pts in (
@@ -1688,7 +1764,7 @@ def phase_bls_ledger_replica(torch, dev, clients: int = 100,
     testing.InProcessCluster (f=2, c=0) with threshold-bls certificates,
     crypto_backend "cuda", the SKVBC app over the categorized ledger,
     file WALs, the durability pipeline at its defaults and state transfer
-    as KvbcReplica configures it, the autotuner off (not ported). 100
+    as KvbcReplica configures it, the autotuner at its default. 100
     closed-loop clients write kvbcbench blocks until `target` commit,
     then `reads` keys are read back. Printed: commit latency, requests/s,
     certificate flushes and how many reached the MSM kernel at the
@@ -1801,13 +1877,15 @@ def phase_bls_ledger_replica(torch, dev, clients: int = 100,
         common = min(b.last_block_id for b in heads)
         agree = len({b.block_digest(common) for b in heads}) == 1
         health = device_health(reps, br0)
+        tuner = tuner_report(reps)
     finally:
         cluster.stop()
         shutil.rmtree(wal_dir, ignore_errors=True)
     out = {"phase": "bls_ledger_replica", "load": load,
            "read_back": read_back, "replicas_agree": agree, **health,
-           "wall_s": time.monotonic() - t_phase}
+           "tuner": tuner, "wall_s": time.monotonic() - t_phase}
     emit(out)
+    problems += tuner_problems(tuner)
     if len(sample) < reads or wrong:
         problems.append(f"read-back: {len(wrong)} of {len(sample)} wrong")
     if not agree:
@@ -2027,6 +2105,8 @@ def phase_ecdsa_plane(torch, dev, num_pp: int = 8) -> dict:
                         f"{out['breaker_failures']} failures")
     if problems:
         raise AssertionError("; ".join(problems))
+    # the same PrePrepares and verdicts for the offload phase
+    out["offload_inputs"] = {"keys": mk, "pps": pps, "want": want_pp}
     return out
 
 
@@ -2050,7 +2130,7 @@ def phase_ecdsa_ledger_replica(torch, dev, clients: int = 16,
     (f=10, c=0), threshold-bls certificates, secp256k1 clients,
     crypto_backend "cuda", the SKVBC app over the categorized ledger,
     file WALs, the durability pipeline and state transfer at their
-    defaults, the autotuner off (not ported). 16 closed-loop clients
+    defaults, the autotuner at its default. 16 closed-loop clients
     write kvbcbench blocks until `target` commit or `budget_s` passes
     (then the writes are cut, never the replicas, and the cut printed),
     then `reads` acknowledged keys are read back. Printed: commit
@@ -2144,6 +2224,8 @@ def phase_ecdsa_ledger_replica(torch, dev, clients: int = 16,
         if load["committed"] < target:
             load["cut"] = {"target": target, "committed": load["committed"],
                            "reason": f"{budget_s} s budget"}
+        # the tuners as the load left them, before the read-back
+        load["tuner"] = tuner_report(reps, clear=False)
         emit({"phase": "ecdsa_ledger_replica", "step": "load", **load})
         if loop.errors or load["committed"] < 1:
             raise AssertionError(f"load: {load['committed']} writes, "
@@ -2166,14 +2248,16 @@ def phase_ecdsa_ledger_replica(torch, dev, clients: int = 16,
         common = min(b.last_block_id for b in heads)
         agree = len({b.block_digest(common) for b in heads}) == 1
         health = device_health(reps, br0)
+        tuner = tuner_report(reps)
     finally:
         cluster.stop()
         shutil.rmtree(wal_dir, ignore_errors=True)
     out = {"phase": "ecdsa_ledger_replica", "load": load,
            "rlc_lanes": lanes, "read_back": read_back,
            "replicas_agree": agree, "common_head": common, **health,
-           "wall_s": time.monotonic() - t_phase}
+           "tuner": tuner, "wall_s": time.monotonic() - t_phase}
     emit(out)
+    problems += tuner_problems(tuner)
     if len(sample) < min(reads, load["committed"]) or wrong:
         problems.append(f"read-back: {len(wrong)} of {len(sample)} wrong")
     if not agree:
@@ -2186,7 +2270,319 @@ def phase_ecdsa_ledger_replica(torch, dev, clients: int = 16,
     return out
 
 
-def ecdsa_kernel_rows(torch, dev, ecdsa_plane, ecdsa_ledger,
+OFFLOAD_LEASE_TIMEOUT_MS = 60000
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+class _Helpers:
+    """Offload helpers as subprocesses on 127.0.0.1 (`python -m
+    tpubft_torch.offload.helper --port P --id ID --strategy S`), each
+    with no card visible; stopped (terminated, then killed) on exit."""
+
+    def __init__(self, specs):
+        self.specs = specs
+        self.procs, self.ports, self.logs = {}, {}, {}
+
+    def __enter__(self):
+        import socket
+        import tempfile
+        env = dict(os.environ, PYTHONPATH=HERE, CUDA_VISIBLE_DEVICES="")
+        for hid, strategy in self.specs:
+            port = _free_port()
+            log = tempfile.TemporaryFile()
+            self.ports[hid], self.logs[hid] = port, log
+            self.procs[hid] = subprocess.Popen(
+                [sys.executable, "-m", "tpubft_torch.offload.helper",
+                 "--port", str(port), "--id", hid, "--strategy", strategy,
+                 "--log-level", "WARNING"], cwd=HERE, env=env,
+                stdout=subprocess.DEVNULL, stderr=log)
+        try:
+            deadline = time.monotonic() + 120
+            for hid, port in self.ports.items():
+                while True:
+                    try:
+                        socket.create_connection(("127.0.0.1", port),
+                                                 1).close()
+                        break
+                    except OSError:
+                        if self.procs[hid].poll() is not None:
+                            raise AssertionError(
+                                f"helper {hid} exited: {self.log_tail(hid)}")
+                        if time.monotonic() > deadline:
+                            raise AssertionError(
+                                f"helper {hid} never listened")
+                        time.sleep(0.1)
+        except BaseException:
+            self.__exit__()
+            raise
+        return self
+
+    def log_tail(self, hid) -> str:
+        log = self.logs[hid]
+        log.seek(0)
+        return log.read()[-2000:].decode(errors="replace")
+
+    def __exit__(self, *exc) -> None:
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.terminate()
+        for p in self.procs.values():
+            try:
+                p.wait(10)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(10)
+        for log in self.logs.values():
+            log.close()
+
+    def gone(self) -> bool:
+        return all(p.poll() is not None for p in self.procs.values())
+
+
+def phase_offload(torch, dev, bls_plane, ecdsa_plane) -> dict:
+    """The verified offload tier (tpubft_torch/offload/) on the card's
+    paths: two helper processes on 127.0.0.1, one honest and one liar
+    (`wrong-on-curve`: valid subgroup points that are not the answer;
+    for ECDSA the first verdict flipped). Each route configures the
+    process-wide pool as a replica does from `offload_helpers` (one
+    helper, a 60 s lease deadline; "off" leaves it disabled).
+    (a) config 2's 64-slot threshold flush (320 shares) and the
+    multisig-bls flush through CombineBatcher, with offload off, the
+    honest helper and the liar: equal certificates; the honest leases
+    verified with no MSM launch, the liar costing one local re-run (one
+    bls_msm launch), quarantined and shown in the health payload's
+    offload section; and the bls_plane's flush with two bad slots,
+    offload off and honest: equal, the honest helper NOT quarantined
+    (the failed check is the shares', found by the one re-run).
+    (b) the ecdsa_plane's 8 PrePrepares (3% forged) through SigManager
+    (batch_fn = crypto.cuda.verify_batch_mixed): off, honest, liar; the
+    verdicts equal the host engines'; RLC launches per curve on each
+    route (honest: one re-fold a curve group, no bisection); lease and
+    soundness microseconds. Launch counts reset just before each run,
+    read just after. The helpers are stopped, and gone, at the end."""
+    import json as _json
+
+    from tpubft_torch.consensus.health import HealthMonitor
+    from tpubft_torch.consensus.sig_manager import SigManager
+    from tpubft_torch.crypto import cuda as crypto_cuda
+    from tpubft_torch.diagnostics import get_registrar
+    from tpubft_torch.offload import pool as off
+    from tpubft_torch.ops import bls12_381_cuda as bc
+    from tpubft_torch.ops import ecdsa as ops_ecdsa
+    from tpubft_torch.ops import ecdsa_cuda as ec
+    from tpubft_torch.ops.dispatch import device_breaker, offload_pool
+    from tpubft_torch.utils.config import ReplicaConfig
+    from tpubft_torch.utils.metrics import Aggregator
+
+    t_phase = time.monotonic()
+    bi = bls_plane["offload_inputs"]
+    k, system = bi["k"], bi["system"]
+    n = len(bi["signers"])
+    clean = _bls_jobs(bi["signers"], k, BLS_SLOTS, (), seed=5)
+    ms_clean = _bls_jobs(bi["ms_signers"], k, BLS_SLOTS, (), seed=6)
+    host_thr = system.create_threshold_verifier()
+    host_ms = bi["ms_sys"].create_threshold_verifier()
+    ei = ecdsa_plane["offload_inputs"]
+    cfg = ReplicaConfig()
+    breaker = device_breaker()
+    breaker.reset()
+    br0 = breaker.snapshot()
+    problems = []
+    out = {"phase": "offload", "helpers": {"honest": "honest",
+                                           "liar": "wrong-on-curve"},
+           "lease_timeout_ms": OFFLOAD_LEASE_TIMEOUT_MS}
+
+    def route(name):
+        off.reset_offload_pool()
+        if name == "off":
+            return None
+        pool = offload_pool()
+        pool.configure(enabled=True,
+                       lease_timeout_ms=OFFLOAD_LEASE_TIMEOUT_MS,
+                       max_inflight=cfg.offload_max_inflight)
+        pool.add_endpoint(name, "127.0.0.1", helpers.ports[name])
+        return pool
+
+    def pool_view(pool):
+        if pool is None:
+            return None
+        s = pool.snapshot()
+        return {"quarantined": s["quarantined"],
+                "lease_us_total": s["lease_us_total"],
+                "lease_items_total": s["lease_items_total"],
+                "soundness_us_total": s["soundness_us_total"],
+                **s["counters"]}
+
+    with _Helpers((("honest", "honest"),
+                   ("liar", "wrong-on-curve"))) as helpers:
+        try:
+            # (a) BLS certificates
+            bls_runs, certs = {}, {}
+            runs = [(kind, r, jobs) for kind, jobs in (
+                ("threshold", clean), ("multisig", ms_clean))
+                for r in ("off", "honest", "liar")]
+            runs += [("threshold_bad_slots", r, bi["bad_jobs"])
+                     for r in ("off", "honest")]
+            for kind, r, jobs in runs:
+                v = (crypto_cuda.make_threshold_verifier(
+                    "multisig-bls", k, n, bi["ms_sys"].public_key,
+                    bi["ms_sys"].share_public_keys)
+                    if kind == "multisig" else
+                    crypto_cuda.make_threshold_verifier(
+                        "threshold-bls", k, n, system.public_key,
+                        system.share_public_keys))
+                pool = route(r)
+                reset_all_launches()
+                t0 = time.monotonic()
+                res, flushes = _bls_flush(v, jobs)
+                ms = (time.monotonic() - t0) * 1e3
+                certs[(kind, r)] = [(x.ok, x.combined_sig, x.bad_shares)
+                                    for x in res]
+                run = {"flush_ms": ms, "flushes": flushes,
+                       "bls_msm_launches": bc.LAUNCHES["bls_msm"],
+                       "device_combines": v.device_combines,
+                       "pool": pool_view(pool)}
+                if r == "liar":
+                    h = HealthMonitor("offload-phase", Aggregator()).verdict()
+                    run["health"] = {"verdict": h["verdict"],
+                                     "offload": h.get("offload"),
+                                     "helper_breaker": h["breakers"].get(
+                                         "helper.liar", {}).get("state")}
+                bls_runs[f"{kind}_{r}"] = run
+            off.reset_offload_pool()
+            out["bls"] = bls_runs
+            for kind, host_v, jobs in (("threshold", host_thr, clean),
+                                       ("multisig", host_ms, ms_clean)):
+                want = host_v.combine_batch(jobs)
+                if any(certs[(kind, r)] != want
+                       for r in ("off", "honest", "liar")):
+                    problems.append(f"{kind}: certificates differ between "
+                                    "the routes or from the host engine")
+                if not all(ok for ok, _, _ in want):
+                    problems.append(f"{kind}: a clean slot failed")
+                o, h, li = (bls_runs[f"{kind}_{r}"]
+                            for r in ("off", "honest", "liar"))
+                if o["bls_msm_launches"] != 1:
+                    problems.append(f"{kind} off: {o['bls_msm_launches']} "
+                                    "MSM launches, not 1")
+                if h["bls_msm_launches"] != 0 \
+                        or h["pool"]["lease_verified"] != 1 \
+                        or h["pool"]["quarantined"]:
+                    problems.append(f"{kind} honest: {h}")
+                if li["bls_msm_launches"] != 1 \
+                        or li["pool"]["lease_rejected"] != 1 \
+                        or li["pool"]["quarantined"] != ["liar"] \
+                        or (li["health"]["offload"] or {}).get(
+                            "quarantined") != ["liar"] \
+                        or li["health"]["verdict"] != "degraded":
+                    problems.append(f"{kind} liar: {li}")
+            bo, bh = (bls_runs[f"threshold_bad_slots_{r}"]
+                      for r in ("off", "honest"))
+            if certs[("threshold_bad_slots", "off")] \
+                    != certs[("threshold_bad_slots", "honest")]:
+                problems.append("bad slots: certificates differ with the "
+                                "honest helper")
+            if bh["pool"]["quarantined"] or bh["pool"]["lease_rejected"] != 1 \
+                    or bh["bls_msm_launches"] != 1:
+                problems.append(f"bad slots, honest helper: {bh}")
+
+            # (b) ECDSA verdicts
+            ecdsa_runs = {}
+            verdicts = {}
+            for r in ("off", "honest", "liar"):
+                # a fresh SigManager a route: it remembers what it verified
+                sm = SigManager(ei["keys"],
+                                batch_fn=crypto_cuda.verify_batch_mixed,
+                                device_min_batch=cfg.device_min_verify_batch)
+                pool = route(r)
+                reset_all_launches()
+                got, steps_ms = [], []
+                for reqs in ei["pps"]:
+                    t0 = time.monotonic()
+                    got.append(sm.verify_batch(reqs))
+                    steps_ms.append((time.monotonic() - t0) * 1e3)
+                verdicts[r] = got
+                view = pool_view(pool)
+                run = {"pp_ms": steps_ms,
+                       "rlc_launches": {c: ops_ecdsa.COUNTS[c]["rlc_launches"]
+                                        for c in ops_ecdsa.CURVES},
+                       "bisection_launches": {
+                           c: ops_ecdsa.COUNTS[c]["bisection_launches"]
+                           for c in ops_ecdsa.CURVES},
+                       "ecdsa_rlc_launches": ec.LAUNCHES["ecdsa_rlc"],
+                       "pool": view}
+                if view and view["lease_issued"]:
+                    run["lease_us_per_lease"] = (view["lease_us_total"]
+                                                 / view["lease_issued"])
+                    run["soundness_us_per_lease"] = (
+                        view["soundness_us_total"] / view["lease_issued"])
+                ecdsa_runs[r] = run
+            off.reset_offload_pool()
+            reg = get_registrar()
+            out["ecdsa"] = ecdsa_runs
+            out["histograms_us"] = {
+                name: reg.histogram_snapshot(name)
+                for name in ("off_lease_us", "off_soundness_us")}
+            groups = len(ei["pps"])
+            if any(verdicts[r] != ei["want"] for r in verdicts):
+                problems.append("ECDSA verdicts differ between the routes "
+                                "or from the host engines")
+            o, h, li = (ecdsa_runs[r] for r in ("off", "honest", "liar"))
+            for c in ops_ecdsa.CURVES:
+                if h["rlc_launches"][c] != groups \
+                        or h["bisection_launches"][c]:
+                    problems.append(f"ECDSA honest {c}: "
+                                    f"{h['rlc_launches'][c]} re-folds for "
+                                    f"{groups} groups")
+                if o["rlc_launches"][c] < groups \
+                        or not o["bisection_launches"][c]:
+                    problems.append(f"ECDSA off {c}: {o['rlc_launches']}")
+            if h["pool"]["lease_verified"] != 2 * groups \
+                    or h["pool"]["quarantined"]:
+                problems.append(f"ECDSA honest: {h['pool']}")
+            if li["pool"]["quarantined"] != ["liar"] \
+                    or li["pool"]["lease_rejected"] != 1 \
+                    or li["pool"]["lease_issued"] != 1:
+                problems.append(f"ECDSA liar: {li['pool']}")
+            for r, run in ecdsa_runs.items():
+                if run["ecdsa_rlc_launches"] != sum(
+                        run["rlc_launches"].values()):
+                    problems.append(f"ECDSA {r}: card launches differ from "
+                                    "the path's")
+        finally:
+            off.reset_offload_pool()
+            out["helper_logs"] = {hid: helpers.log_tail(hid)[-300:]
+                                  for hid in helpers.procs}
+    br1 = breaker.snapshot()
+    out.update({"helpers_gone": helpers.gone(),
+                "breaker": br1["state"],
+                "breaker_failures": br1["failures"] - br0["failures"],
+                "wall_s": time.monotonic() - t_phase})
+    out["launches_by_path"] = {
+        "bls_msm": sum(run["bls_msm_launches"]
+                       for run in out["bls"].values()),
+        **{f"ecdsa_rlc_{c}": sum(run["rlc_launches"][c]
+                                 for run in out["ecdsa"].values())
+           for c in ops_ecdsa.CURVES}}
+    emit(_json.loads(_json.dumps(out, default=str)))
+    if not out["helpers_gone"]:
+        problems.append("a helper process outlived the phase")
+    if out["breaker_failures"] or out["breaker"] != "closed":
+        problems.append(f"device breaker {out['breaker']}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
+def ecdsa_kernel_rows(torch, dev, ecdsa_plane, ecdsa_ledger, offload,
                       sm_clock_mhz) -> list:
     """The ECDSA kernels at their paths' shapes
     (tools/ecdsa_probe.measure): ecdsa_rlc for secp256k1 at the config-3
@@ -2226,7 +2622,10 @@ def ecdsa_kernel_rows(torch, dev, ecdsa_plane, ecdsa_ledger,
         return work_bound_ms(ops, nbytes, sm_clock_mhz)
     for curve, b in cases:
         m = cases[(curve, b)]
-        by_path = {"ecdsa_plane": plane[curve]["rlc_launches"]}
+        by_path = {"ecdsa_plane": plane[curve]["rlc_launches"],
+                   # off, the honest helper's re-folds, the liar's run
+                   "offload": offload["launches_by_path"][
+                       f"ecdsa_rlc_{curve}"]}
         if curve == "secp256k1":
             by_path["ecdsa_ledger_replica"] = ecdsa_ledger["load"][
                 "rlc_launches"]
@@ -2586,7 +2985,7 @@ def sha256_rate_row(torch, dev, b: int, sm_clock_mhz: float) -> dict:
 
 def phase_kernels(torch, dev, plane, replica, ledger_replica, kernel,
                   ladder, ledger, digest, bls_plane, bls_ledger,
-                  ecdsa_plane, ecdsa_ledger, sm_clock_mhz) -> dict:
+                  ecdsa_plane, ecdsa_ledger, offload, sm_clock_mhz) -> dict:
     """Every kernel, timed at its path's shape: the verify kernel at one
     PrePrepare drain of 100 signatures, the ladder kernels at the ladder's
     1024 lanes, SHA-256 at a state-transfer window of 64 raw blocks that
@@ -2654,8 +3053,9 @@ def phase_kernels(torch, dev, plane, replica, ledger_replica, kernel,
                 "mismatches_vs_plain")}
     rows.append(sha256_kernel_row(torch, dev, ledger_replica, ledger, digest,
                                   sm_clock_mhz))
-    rows += bls_kernel_rows(torch, dev, bls_plane, bls_ledger, sm_clock_mhz)
-    rows += ecdsa_kernel_rows(torch, dev, ecdsa_plane, ecdsa_ledger,
+    rows += bls_kernel_rows(torch, dev, bls_plane, bls_ledger, offload,
+                            sm_clock_mhz)
+    rows += ecdsa_kernel_rows(torch, dev, ecdsa_plane, ecdsa_ledger, offload,
                               sm_clock_mhz)
     out = {"kernels": rows}
     emit(out)
@@ -2754,7 +3154,8 @@ def sha256_kernel_row(torch, dev, ledger_replica, ledger, digest,
             "path": "state-transfer digests (ledger replica catch-up)"}
 
 
-def bls_kernel_rows(torch, dev, bls_plane, bls_ledger, sm_clock_mhz) -> list:
+def bls_kernel_rows(torch, dev, bls_plane, bls_ledger, offload,
+                    sm_clock_mhz) -> list:
     """The BLS kernels at their paths' shapes: bls_msm at config 2's
     flush (S=64 segments of K=5 Lagrange-weighted shares, the plane's
     threshold flush) and at config 4's combine (S=1, K=667), bls_mul at
@@ -2780,7 +3181,9 @@ def bls_kernel_rows(torch, dev, bls_plane, bls_ledger, sm_clock_mhz) -> list:
         ("bls_msm", "S=64 K=5", seg["flush"],
          {"bls_plane_threshold_flush": lp["threshold_flush"],
           "bls_plane_multisig_flush": lp["multisig_flush"],
-          "bls_ledger_replica": ledger_launches},
+          "bls_ledger_replica": ledger_launches,
+          # offload off, the liar's one re-run, the bad slots' re-run
+          "offload": offload["launches_by_path"]["bls_msm"]},
          "config 2's fused certificate flush (CombineBatcher)"),
         ("bls_msm", "S=1 K=667", seg["config4"],
          {"bls_plane_config4_combine": lp["config4_combine"]},
@@ -2872,12 +3275,13 @@ def main() -> int:
     bls_ledger = phase_bls_ledger_replica(torch, dev)
     ecdsa_plane = phase_ecdsa_plane(torch, dev)
     ecdsa_ledger = phase_ecdsa_ledger_replica(torch, dev)
+    offload = phase_offload(torch, dev, bls_plane, ecdsa_plane)
     ledger = phase_ledger(torch, dev)
     digest = phase_digest(torch, dev, ledger.pop("raws"))
     phase_rate(torch, dev, clock, info["nvidia_smi"])
     phase_kernels(torch, dev, plane, replica, ledger_replica, kernel, ladder,
                   ledger, digest, bls_plane, bls_ledger, ecdsa_plane,
-                  ecdsa_ledger, clock)
+                  ecdsa_ledger, offload, clock)
     emit({"phase": "done", "wall_s": time.monotonic() - t_start})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

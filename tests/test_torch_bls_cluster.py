@@ -10,7 +10,8 @@ ids). The certificates themselves are checked byte for byte in
 test_torch_bls_systems.py; here they carry the protocol. Clean, under an
 equivocating primary, and with the share-aggregation overlay on, where
 the adaptive scheme resolves to multisig-bls. The crypto backend is
-"cpu" on both sides and the autotuner is off (not ported).
+"cpu" on both sides and the autotuner is off on both sides (its
+default-config parity run is in test_torch_tuning.py).
 """
 import pytest
 import torch

@@ -1,6 +1,7 @@
-"""The port stands alone: tpubft_torch and chip_smoke.py import nothing of
-JAX or of the reference package, and chip_smoke.py refuses to run without
-a card or without the port beside it."""
+"""The port stands alone: tpubft_torch (the tuning and offload planes
+among it) and chip_smoke.py import nothing of JAX or of the reference
+package, and chip_smoke.py refuses to run without a card or without the
+port beside it."""
 import ast
 import os
 import shutil
@@ -26,6 +27,15 @@ sig = s.sign(b"m")
 v = ed25519.verify_batch([(b"m", sig, s.public_bytes()),
                           (b"n", sig, s.public_bytes())])
 assert v.tolist() == [True, False], v
+from tpubft_torch.offload.helper import HelperServer
+from tpubft_torch.offload import protocol
+srv = HelperServer("iso")
+resp = srv.handle(protocol.encode_request(
+    1, protocol.KIND_BLS_SUM, 100, protocol.encode_bls_segments([])))
+assert protocol.decode_response(resp)[:2] == (1, protocol.ST_OK), resp
+for mod in ("tpubft_torch.tuning.wiring", "tpubft_torch.tuning.controller",
+            "tpubft_torch.offload.pool", "tpubft_torch.offload.soundness"):
+    assert mod in sys.modules, mod
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "tpubft" or m.startswith("tpubft."))

@@ -11,9 +11,10 @@ reference draws them from the wall clock and the process tracer).
 The abort-heavy schedule runs the same comparison under an equivocating
 primary (`testing/byzantine.py`'s `equivocate`) with conflicting skvbc
 writes: a write whose readset key changed after its read version is
-rejected (success False, no block). The planes the port does not carry
-yet (the autotuner) are off on both sides; the crypto backend is "cpu"
-on both sides except in the one-write device-route test.
+rejected (success False, no block). The autotuner is off on both sides
+(its default-config parity run is in test_torch_tuning.py); the crypto
+backend is "cpu" on both sides except in the one-write device-route
+test.
 """
 import time
 

@@ -20,7 +20,8 @@ from tpubft_torch.testing import InProcessCluster as PortCluster
 
 # the counter runs keep the durability pipeline off on both sides (the
 # ledger parity tests hold it against the reference); the autotuner is
-# not ported (ROADMAP A.8) and is off on both sides
+# off on both sides (test_torch_tuning.py holds a default-config
+# cluster, tuner on, against the reference)
 PLANES_OFF = dict(durability_pipeline=False, autotune_enabled=False)
 SEED = b"torch-replica-parity"
 
@@ -173,8 +174,6 @@ def test_device_route_on_cpu_tensors_gives_the_same_replies(monkeypatch):
 
 
 _PLANES = {
-    "autotune_enabled": (dict(durability_pipeline=False), "autotuner"),
-    "offload_enabled": (dict(PLANES_OFF, offload_enabled=True), "offload"),
     "pre_execution_enabled": (dict(PLANES_OFF, pre_execution_enabled=True),
                               "pre_execution"),
     "thin_replica_enabled": (dict(PLANES_OFF, thin_replica_enabled=True),
@@ -192,26 +191,36 @@ def test_unported_plane_refuses_to_start(plane):
 
 @pytest.mark.parametrize("pipeline", [True, False])
 def test_default_config_refuses_only_for_the_autotuner(pipeline):
-    """The reference's default config: the autotuner is the one plane
-    left that the port refuses, and the error names it; with it off the
-    replica builds, with the durability pipeline on or off."""
+    """The reference's default config builds a port Replica: nothing of
+    it is refused any more, and its tuner runs from `start` (awaited by
+    its poll count) to `stop`, with the durability pipeline on or off.
+    (The name is kept from when the autotuner was the one plane of the
+    default config the port refused.)"""
     from tpubft_torch.comm.loopback import LoopbackBus
     from tpubft_torch.consensus.keys import ClusterKeys
     from tpubft_torch.consensus.replica import Replica
+    from tpubft_torch.tuning import TuningController
     from tpubft_torch.utils.config import ReplicaConfig
     cfg = ReplicaConfig(durability_pipeline=pipeline)
+    assert cfg.autotune_enabled and not cfg.offload_enabled
     keys = ClusterKeys.generate(cfg, 1, seed=SEED)
     bus = LoopbackBus()
     try:
-        with pytest.raises(NotImplementedError,
-                           match="autotuner.*only plane.*ROADMAP A.8"):
-            Replica(cfg, keys.for_node(0), bus.create(0),
-                    port_counter.CounterHandler())
-        cfg = ReplicaConfig(durability_pipeline=pipeline,
-                            autotune_enabled=False, crypto_backend="cpu")
         rep = Replica(cfg, keys.for_node(0), bus.create(0),
                       port_counter.CounterHandler())
+        assert rep.crypto_backend == "cuda"
         assert (rep.durability is not None) == pipeline
+        assert isinstance(rep.tuning, TuningController)
+        assert ("durability_group_max" in rep.tuning.registry.names()) \
+            == pipeline
+        rep.start()
+        try:
+            _wait(lambda: rep.tuning.m_polls.value >= 1, 60,
+                  "the tuner's first poll")
+            assert rep.tuning.state()["active"] is True
+        finally:
+            rep.stop()
+        assert rep.tuning.state()["active"] is False
     finally:
         bus.shutdown()
 

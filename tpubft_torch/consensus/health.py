@@ -212,9 +212,16 @@ class HealthMonitor:
             agg = HEALTHY
         out = {"verdict": agg, "stalled": stalled, "probes": probes,
                "breakers": breakers, "degraded": degraded}
-        # Port divergence (reference health.py:215-231): the mesh
-        # summary and the offload summary are left out; the mesh tier
-        # and the offload pool are not ported (ROADMAP A.7, A.8).
+        # Port divergence (reference health.py:215-222): the mesh
+        # summary is left out; the mesh tier is not ported (ROADMAP A.7).
+        # offload summary: helper roster / quarantine set / lease
+        # counters, visible without decoding per-helper `helper.<id>`
+        # breaker rows. Gated on the module being live so offload-off
+        # deployments pay nothing (pool construction registers a flight
+        # dump provider; don't force that from a read path).
+        _off = sys.modules.get("tpubft_torch.offload.pool")
+        if _off is not None and _off._POOL is not None:
+            out["offload"] = _off._POOL.snapshot()
         with self._mu:
             sections = list(self._info_sections.items())
         for name, fn in sections:

@@ -82,16 +82,10 @@ def _refuse_unported_planes(cfg: ReplicaConfig) -> None:
     """Port divergence: every plane listed here is refused before the
     replica builds any thread-owning part. The reference's sites are
     named beside each check."""
-    if cfg.offload_enabled:                 # reference replica.py:166
-        _not_ported("offload_enabled", "A.8")
     if cfg.pre_execution_enabled:           # reference replica.py:567
         _not_ported("pre_execution_enabled", "A.9")
     if cfg.thin_replica_enabled:            # reference replica.py:585
         _not_ported("thin_replica_enabled", "A.9")
-    if cfg.autotune_enabled:                # reference replica.py:756
-        _not_ported("autotune_enabled (the closed-loop autotuner, on by "
-                    "default: the only plane that still refuses the "
-                    "default config)", "A.8")
 
 
 def share_digest(kind: str, epoch: int, view: int, seq_num: int,
@@ -190,8 +184,16 @@ class Replica(IReceiver):
         # process-wide like the device breaker (helpers serve the
         # process, not one replica); endpoint list is additive so
         # in-process tests can pre-register InprocHelper transports.
-        # Port divergence (reference replica.py:166-175): the offload
-        # tier is not ported; _refuse_unported_planes refused it above.
+        if cfg.offload_enabled:
+            from tpubft_torch.ops.dispatch import offload_pool
+            pool = offload_pool()
+            pool.configure(enabled=True,
+                           lease_timeout_ms=cfg.offload_lease_timeout_ms,
+                           max_inflight=cfg.offload_max_inflight)
+            for ep in filter(None, cfg.offload_helpers.split(",")):
+                hid, addr = ep.split("=", 1)
+                host, port = addr.rsplit(":", 1)
+                pool.add_endpoint(hid.strip(), host.strip(), int(port))
         self.health = HealthMonitor(f"replica{cfg.replica_id}",
                                     self.aggregator,
                                     poll_s=cfg.health_poll_ms / 1e3)
@@ -781,10 +783,13 @@ class Replica(IReceiver):
         # whenever health leaves `healthy` or a breaker opens. The
         # ReplicaConfig fields seed the knob registry; after this point
         # the registry — not the frozen dataclass — owns the values.
-        # Port divergence (reference replica.py:756-761): the autotuner
-        # is not ported (ROADMAP A.8); _refuse_unported_planes refused it
-        # above.
         self.tuning = None
+        if cfg.autotune_enabled:
+            from tpubft_torch.tuning import build_replica_tuning
+            self.tuning = build_replica_tuning(self, cfg)
+            self._diag.register_status(f"replica{self.id}.tuning",
+                                       self.tuning.render)
+            self._diag.register_status("tuning", self.tuning.render)
 
         # assigned BEFORE the restore replay: _restore_window can reach
         # _execute_committed, whose pipeline retrigger reads _running

@@ -25,6 +25,12 @@ ECDSA RLC kernel (ops/ecdsa.py → ops/ecdsa_cuda.py):
                                   ops/bls12_381_cuda.py), the counterpart
                                   of fastMultExp (FastMultExp.cpp:27).
 
+Each of the three heavy launches is offered to the verified offload tier
+first, as in the reference (offload/pool.py: `ecdsa_via_offload`,
+`combine_via_offload`, `sum_via_offload`); with no active pool, or no
+lease, the local path runs unchanged, and a helper's answer reaches a
+verdict only after the on-replica soundness check.
+
 A device failure (a RuntimeError from the launch, or an OPEN breaker's
 BreakerOpen) degrades to the host scalar engine at the same places as
 the reference; the breaker recorded the failure at the kernel seam, and
@@ -71,19 +77,36 @@ def verify_batch_items(items: Sequence[Tuple[bytes, bytes, bytes]]
 # launch and its read-back.
 CARD_ECDSA_CROSSOVER = 2
 
+# runtime override of the ECDSA device/host crossover — the autotuner's
+# actuator (tuning/wiring.py drives it from measured `ecdsa` kernel
+# batch stats vs the batched-host timing counters). Process-wide like
+# the device itself: all replicas of one process share one card, so the
+# last-configured value wins. None = fall through to the env knob and
+# the device default below.
+_crossover_override: Optional[int] = None
+
+
+def set_ecdsa_crossover(b: Optional[int]) -> None:
+    """Set (or with None, clear) the runtime ECDSA device/host
+    crossover. Takes precedence over TPUBFT_ECDSA_CROSSOVER_B."""
+    global _crossover_override
+    _crossover_override = None if b is None else max(1, int(b))
+
 
 def ecdsa_crossover() -> int:
     """Minimum ECDSA group (one curve's items of a batch) that rides the
     RLC kernel; smaller groups verify on the batched host engine
-    (crypto/scalar.ecdsa_verify_batch). TPUBFT_ECDSA_CROSSOVER_B wins
-    (read on every call: tests flip it at runtime); else
-    CARD_ECDSA_CROSSOVER where the port's default device is a card and
-    1 << 30 where it is the CPU, on which the plain fold runs op by op.
-    A missing card raises device.NoDevice. The reference asks
-    jax.devices() once (tpu.py:51-60), divides the value by the healthy
-    mesh width (tpu.py:88-92; the port has one device, ROADMAP A.7) and
-    lets the autotuner override it (set_ecdsa_crossover; the port's
-    tuner is ROADMAP A.8)."""
+    (crypto/scalar.ecdsa_verify_batch). The runtime override
+    (set_ecdsa_crossover, the autotuner's actuator) wins, then
+    TPUBFT_ECDSA_CROSSOVER_B (read on every call: tests flip it at
+    runtime), then CARD_ECDSA_CROSSOVER where the port's default device
+    is a card and 1 << 30 where it is the CPU, on which the plain fold
+    runs op by op. A missing card raises device.NoDevice. The reference
+    asks jax.devices() once (tpu.py:51-60) and divides the static tiers
+    by the healthy mesh width (tpu.py:83-92); the port has one device
+    and no mesh (ROADMAP A.7), so nothing is divided."""
+    if _crossover_override is not None:
+        return _crossover_override
     v = os.environ.get("TPUBFT_ECDSA_CROSSOVER_B")
     if v is not None:
         try:
@@ -105,10 +128,11 @@ def verify_batch_mixed(items: Sequence[Tuple[str, bytes, bytes, bytes]]
     secp256k1/P-256 client-auth mix of BASELINE configs 3/5 rides the
     card: EdDSA through the verify kernel, ECDSA through the RLC batch
     kernel (ops/ecdsa.rlc_verify_batch — one launch a clean group,
-    bisection on a forged one). ECDSA groups below the crossover verify
-    on the batched host engine; an unknown scheme verifies on the host.
-    The reference offers an ECDSA group to the offload tier first
-    (tpu.py:156-160); the port has none yet (ROADMAP A.8)."""
+    bisection on a forged one). An ECDSA group at or above the crossover
+    is offered to the offload tier first (tpu.py:143-160): a helper's
+    verdicts cost one re-fold launch of the RLC kernel over the accepted
+    subset instead of the bisection. Groups below the crossover verify
+    on the batched host engine; an unknown scheme verifies on the host."""
     groups: Dict[str, List[int]] = {}
     for i, (scheme, _pk, _data, _sig) in enumerate(items):
         groups.setdefault(scheme, []).append(i)
@@ -122,8 +146,18 @@ def verify_batch_mixed(items: Sequence[Tuple[str, bytes, bytes, bytes]]
             curve = ECDSA_CURVES[scheme]
             if len(sub) >= ecdsa_crossover():
                 from tpubft_torch.ops import ecdsa as ops_ecdsa
-                verdicts = [bool(x) for x in ops_ecdsa.rlc_verify_batch(
-                    curve, [(d, s, pk) for _, pk, d, s in sub])]
+                rlc_items = [(d, s, pk) for _, pk, d, s in sub]
+
+                def _local_rlc(items=rlc_items, curve=curve):
+                    return [bool(x) for x in
+                            ops_ecdsa.rlc_verify_batch(curve, items)]
+                # offload tier first; None = no lease (pool inactive, at
+                # capacity or helpers down) -> the local path unchanged
+                from tpubft_torch.offload import pool as offload
+                verdicts = offload.ecdsa_via_offload(curve, rlc_items,
+                                                     _local_rlc)
+                if verdicts is None:
+                    verdicts = _local_rlc()
             else:
                 from tpubft_torch.crypto import scalar as _scalar
                 verdicts = _scalar.ecdsa_verify_batch(
@@ -381,16 +415,31 @@ class CudaBlsThresholdVerifier(BlsThresholdVerifier):
         return CudaBlsThresholdAccumulator(self, with_share_verification)
 
     def _combine_segments(self, segments, digests=None) -> List:
+        """Fused combine with backend tiering: offload (leased to a
+        verified helper) -> device -> host (reference tpu.py:389-403). A
+        lease only happens when the pool is active AND the caller
+        supplied the slot digests the soundness check binds to; a failed
+        or evicted lease re-runs the local path inside this same call,
+        so the returned points are byte-identical with offload on or
+        off."""
+        if digests is not None:
+            from tpubft_torch.offload import pool as offload
+            leased = offload.combine_via_offload(
+                segments, digests, self._master_pk,
+                lambda: self._combine_segments_local(segments))
+            if leased is not None:
+                return leased
+        return self._combine_segments_local(segments)
+
+    def _combine_segments_local(self, segments) -> List:
         """Every slot's Lagrange-weighted MSM in ONE segmented
         `bls_msm` launch. Below the crossover the host Pippenger path
         combines; a fused flush clears the crossover on the SUM of shares
         (the reference's tpu.py:405-424).
 
-        Port divergences: no offload tier (reference tpu.py:390-398; the
-        port's replica refuses an active offload pool, ROADMAP A.8), so
-        `digests` is unused; no host fallback (reference :422): a failed
-        device combine raises."""
-        del digests
+        Port divergence: no host fallback (reference :422): a failed
+        device combine raises, here and as an offload lease's local
+        re-run."""
         total = sum(len(ids) for ids, _ in segments)
         if total < msm_crossover_k() or not any(ids for ids, _ in segments):
             self.host_combines += 1
@@ -414,10 +463,21 @@ class CudaBlsMultisigVerifier(BlsMultisigVerifier):
         self.host_combines = 0
 
     def _sum_segments(self, segments, meta=None) -> List:
-        """Port divergences: no offload tier (reference tpu.py:446-453;
-        ROADMAP A.8), so `meta` is unused; no host fallback (reference
-        :462): a failed device sum raises."""
-        del meta
+        """Offload first when the caller supplied each segment's
+        (digest, contributor ids) (reference tpu.py:436-444); a failed
+        or evicted lease re-runs the local sums."""
+        if meta is not None and any(m is not None for m in meta):
+            from tpubft_torch.offload import pool as offload
+            leased = offload.sum_via_offload(
+                segments, meta, self,
+                lambda: self._sum_segments_local(segments))
+            if leased is not None:
+                return leased
+        return self._sum_segments_local(segments)
+
+    def _sum_segments_local(self, segments) -> List:
+        """Port divergence: no host fallback (reference tpu.py:446-462): a
+        failed device sum raises."""
         total = sum(len(pts) for pts in segments)
         # fused flush: clear the crossover on the SUM across segments
         if total < msm_crossover_k() or not any(segments):

@@ -15,8 +15,9 @@ wraps the gate in the process-wide device breaker (utils/breaker.py):
 device exceptions and latency-SLO breaches count against the failure
 budget, a tripped breaker fast-fails callers into their host fallbacks
 with `BreakerOpen` instead of queueing work behind a dead card, and
-half-open probe batches re-admit the device once it recovers. The mesh
-and offload tiers of the reference wait for their slices.
+half-open probe batches re-admit the device once it recovers. The
+offload tier is fronted here too (`offload_pool`); the reference's mesh
+tier waits for its slice (ROADMAP A.7).
 """
 from __future__ import annotations
 
@@ -95,3 +96,19 @@ def device_section(kind: str, batch: int = 0) -> _Section:
     """Guarded device seam. `batch` annotates the kernel profile and the
     flight ring with the call's batch size (0 = not reported)."""
     return _Section(kind, batch)
+
+
+# ---------------------------------------------------------------------
+# offload tier: rented, untrusted, verified helpers
+# ---------------------------------------------------------------------
+
+def offload_pool():
+    """The process-wide verified crypto-offload HelperPool (reference
+    dispatch.py:191-199). Replica wiring configures it from
+    ReplicaConfig; the health plane and the `offload_route` knob's
+    actuator reach it here. The pool is one more backend tier behind the
+    crypto call sites: kernels keep their device and host paths and
+    consult the pool's verified API first, and a failed or evicted lease
+    re-runs on the local tiers inside the same flush."""
+    from tpubft_torch.offload.pool import get_offload_pool
+    return get_offload_pool()

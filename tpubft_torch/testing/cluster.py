@@ -6,16 +6,13 @@ tests/simpleTest in-proc mode): n replicas + clients share one LoopbackBus,
 so byzantine hooks (drop/mutate) apply to the whole cluster.
 
 Port of tpubft/testing/cluster.py. It diverges from the reference in
-three places, each marked where it sits:
+two places, each marked where it sits:
 
   * the reconfiguration dispatcher is not wired, and there is no
     operator client (ROADMAP A.9): RECONFIG requests execute to an empty
     reply, as on a reference replica with no dispatcher attached;
   * a ledger replica's state transfer is configured from the replica's
-    config, as KvbcReplica configures it;
-  * replicas are built with the port's config, whose autotuner is not
-    ported yet (ROADMAP A.8) and must be turned off through
-    `cfg_overrides`.
+    config, as KvbcReplica configures it.
 """
 from __future__ import annotations
 
