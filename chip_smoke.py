@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (tpubft_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py           # every phase, on one card
+    python3 chip_smoke.py --mesh    # the device and mesh phases alone
 
 builds the CUDA kernels from the sources in the checkout (one nvcc per
 source, all started together) and runs these phases in order, one JSON
@@ -167,6 +168,27 @@ line each; any failure exits non-zero:
            verdicts, RLC launches per curve on each route (honest: one
            re-fold a curve group, no bisection), lease and soundness
            microseconds. The helpers are stopped, and gone, at the end;
+  mesh     the mesh tier (parallel/sharding.py): (a) on this card's
+           default inventory one slot, no mesh, no device.chip* breaker,
+           and the routed verify, digest, MSM and RLC equal to the
+           single-device route in bytes and launches; (b) 4 virtual
+           slots on the card (sharding.set_virtual_devices): verify 256
+           (every 5th forged), sha256_batch 256 and sha256_batch_mixed
+           256 of mixed sizes, config 4's 1000-point msm, msm_batch at
+           S=64 K=16 and rlc_verify_batch of 128 secp256k1 and 128 P-256
+           items (3% forged), each against the one-slot route, the host
+           engines and the plain versions on the card, with launches a
+           kernel (one a slot), the bls_msm_combine launches, the
+           `.shard` profile rows and each route's ms on the 4 slots of
+           ONE card (no multi-card time) beside the one-slot route's;
+           bls_msm_combine against its plain version and timed; (c)
+           slot 2 faulted in a flood of verifies and RLC flushes: only
+           slot 2 evicted, exact verdicts, the device breaker closed,
+           the health payload's mesh.evicted [2], then readmitted after
+           its cooldown; (d) config 1's counter cluster (the replica
+           phase) on the 4 slots until 1,000 writes commit, with
+           crypto_shard_count registered and mesh_sharded_verifies on
+           every replica; (e) graft_entry.dryrun_multichip(4);
   ledger   config 1's categorized KVBC ledger at the kvbcbench block shape
            (800 blocks of 8 versioned keys and one Merkle-proven key) on a
            MemoryDB with use_device_hashing=True, against the same ledger
@@ -222,7 +244,9 @@ line each; any failure exits non-zero:
            chain at the cycles of this run's clock64 probe,
            ops/ecdsa_cuda.probe), and the host engine's time on the same
            items (scalar.ecdsa_verify_batch) as the yardstick that
-           decides the crossover;
+           decides the crossover; bls_msm_combine at the mesh
+           phase's S=64 D=4 partials (config 4's S=1 D=4 beside it),
+           its launches the mesh phase's sharded MSM routes;
   done     the script's wall time from the first phase on.
 
 Every cluster phase runs the autotuner at its default (a poll a second)
@@ -973,13 +997,15 @@ def device_health_problems(h: dict) -> list:
 
 
 def phase_replica(torch, dev, clients: int = 100, target: int = 3000,
-                  budget_s: float = 120.0) -> dict:
+                  budget_s: float = 120.0, label: str = "replica") -> dict:
     """Config 1's own entry points: a four-replica in-process cluster
     (testing.InProcessCluster over the loopback bus) with the counter
     app, driven by `clients` BftClients in a closed loop (one write
     outstanding each) until `target` requests have committed. Every
     reply is checked, the four replicas must agree, and the verify
-    kernel must have carried the path with nothing degraded."""
+    kernel must have carried the path with nothing degraded. `label`
+    names the phase in the lines it prints (the mesh phase runs it on
+    four slots)."""
     import numpy as np
 
     from tpubft_torch.apps import counter
@@ -997,7 +1023,7 @@ def phase_replica(torch, dev, clients: int = 100, target: int = 3000,
     rep0 = cluster.replicas[0]
     assert rep0.keys.threshold_scheme == "multisig-ed25519", \
         rep0.keys.threshold_scheme
-    emit({"phase": "replica", "step": "config", "n": cluster.n, "f": 1,
+    emit({"phase": label, "step": "config", "n": cluster.n, "f": 1,
           "c": 0, "clients": clients, "target_requests": target,
           "budget_s": budget_s,
           "scheme": rep0.keys.threshold_scheme, "config": cfg,
@@ -1031,8 +1057,11 @@ def phase_replica(torch, dev, clients: int = 100, target: int = 3000,
         load = loop.run(lambda n: n >= target, budget_s)
         launches = kc.LAUNCHES["ed25519_verify"]
         sig_launches = sig.calls
-        profile = flight.kernel_profiler().snapshot().get("ed25519") or {}
+        profiles = flight.kernel_profiler().snapshot()
+        profile = profiles.get("ed25519") or {}
+        shard_profile = profiles.get("ed25519.shard")
         reps = list(cluster.replicas.values())
+        sharded = [r.sig.mesh_sharded_verifies.value for r in reps]
         health = device_health(reps, br0)
         # every committed write executes on all four replicas
         done = sum(len(v) for v in per_client.values())
@@ -1056,7 +1085,7 @@ def phase_replica(torch, dev, clients: int = 100, target: int = 3000,
         tuner = tuner_report(reps)
     finally:
         cluster.stop()
-    out = {"phase": "replica", "committed": done,
+    out = {"phase": label, "committed": done,
            "load_s": load["load_s"], "requests_per_s": done / load["load_s"],
            "commit_latency_ms": load["commit_latency_ms"],
            "preprepares": primary, "executed_requests": executed,
@@ -1067,7 +1096,8 @@ def phase_replica(torch, dev, clients: int = 100, target: int = 3000,
            "sigmanager_launches": sig_launches,
            "certificate_launches": launches - sig_launches,
            "signatures_per_launch": profile.get("batch_avg"),
-           "profile": profile,
+           "profile": profile, "shard_profile": shard_profile,
+           "mesh_sharded_verifies": sharded,
            "counter_values": values, "sum_of_adds": adds,
            "last_executed": last_exec, "replies_increase": monotone,
            **health, "tuner": tuner,
@@ -2687,6 +2717,405 @@ def ecdsa_kernel_rows(torch, dev, ecdsa_plane, ecdsa_ledger, offload,
     return rows
 
 
+MESH_SLOTS = 4
+
+
+def _mesh_inputs():
+    """The mesh phase's seeded inputs: 256 Ed25519 items, every 5th
+    forged; 256 Merkle messages and 256 blocks of mixed sizes; config
+    4's 1000-point MSM; 64 segments of 16 Lagrange-weighted shares; 128
+    secp256k1 and 128 P-256 items, 3% forged."""
+    import random
+
+    import numpy as np
+
+    from tpubft_torch import testing
+    from tpubft_torch.crypto import bls12381 as bls
+    from tpubft_torch.crypto import cpu
+    signer = cpu.Ed25519Signer.generate(seed=b"chip-smoke-mesh")
+    pk = signer.public_bytes()
+    ed = []
+    for i in range(256):
+        m = b"mesh-%d" % i
+        sig = signer.sign(m)
+        if i % 5 == 0:
+            sig = sig[:8] + bytes([sig[8] ^ 1]) + sig[9:]
+        ed.append((m, sig, pk))
+    rng = np.random.default_rng(15)
+    sizes = [0, 1, 55, 56, 63, 64, 119, 120, 300, 1000, 4400]
+    mixed = [rng.bytes(sizes[i % len(sizes)]) for i in range(256)]
+    r = random.Random(15)
+    base = [bls.g1_mul(bls.G1_GEN, r.randrange(1, bls.R)) for _ in range(64)]
+    pts = [bls.g1_mul(bls.G1_GEN, 3 + i) for i in range(1000)]
+    ks = [r.randrange(bls.R) for _ in range(1000)]
+    segs = []
+    for j in range(64):
+        width = 16 - j % 2
+        ids = list(range(1 + j % 7, 1 + j % 7 + width))
+        segs.append(([base[(i + j) % 64] for i in range(width)],
+                     bls.lagrange_coeffs_at_zero(ids)))
+    forged = (7, 40, 99, 120)
+    ecdsa = {c: testing.ecdsa_corpus(c, 128, seed=15, forged=forged)
+             for c in ("secp256k1", "secp256r1")}
+    return {"ed25519": ed, "merkle": merkle_messages(256, seed=15),
+            "mixed": mixed, "msm": (pts, ks), "segments": segs,
+            "ecdsa": ecdsa}
+
+
+def _mesh_route_calls(inp) -> dict:
+    """Every routed entry point on the phase's inputs, called without a
+    device (the mesh consults its plan): name -> a call giving its
+    answer as plain values."""
+    from tpubft_torch.ops import bls12_381 as bops
+    from tpubft_torch.ops import ecdsa as eops
+    from tpubft_torch.ops import ed25519 as ops
+    from tpubft_torch.ops import sha256 as sha
+    calls = {
+        "ed25519": lambda: ops.verify_batch(inp["ed25519"]).tolist(),
+        "sha256": lambda: sha.sha256_batch(inp["merkle"]),
+        "sha256_mixed": lambda: sha.sha256_batch_mixed(inp["mixed"]),
+        "msm": lambda: bops.msm(*inp["msm"]),
+        "msm_batch": lambda: bops.msm_batch(inp["segments"])}
+    for c, items in inp["ecdsa"].items():
+        calls[f"rlc_{c}"] = (lambda c=c, items=items:
+                             eops.rlc_verify_batch(c, items).tolist())
+    return calls
+
+
+def _mesh_routes(inp) -> dict:
+    return {name: call() for name, call in _mesh_route_calls(inp).items()}
+
+
+def _mesh_route_bounds(inp, sm_clock_mhz: float) -> dict:
+    """Each route's bound (work_bound_ms): the work its function needs
+    on the phase's inputs, however it is sharded."""
+    from tpubft_torch.ops import bls12_381 as bops
+    from tpubft_torch.ops import bls12_381_cuda as bc
+    from tpubft_torch.ops import ecdsa as eops
+    from tpubft_torch.ops import ecdsa_cuda as ec
+    from tpubft_torch.ops import sha256_cuda
+    out = {"ed25519": verify_bound_ms(len(inp["ed25519"]), sm_clock_mhz)}
+    for name, msgs in (("sha256", inp["merkle"]),
+                       ("sha256_mixed", inp["mixed"])):
+        out[name] = work_bound_ms(*sha256_cuda.work([len(m) for m in msgs]),
+                                  sm_clock_mhz)
+    for name, segs in (("msm", [inp["msm"]]),
+                       ("msm_batch", inp["segments"])):
+        h = bops.prepare_msm_batch(segs)
+        out[name] = work_bound_ms(*bc.work(h[0], h[3], True), sm_clock_mhz)
+    for c, items in inp["ecdsa"].items():
+        rp = eops.prepare_rlc_batch(c, items)
+        out[f"rlc_{c}"] = work_bound_ms(*ec.work(
+            c, rp.u1, rp.u2, rp.host_valid, rp.wrap_ok), sm_clock_mhz)
+    return {k: {"bound_ms": v["bound_ms"], "bound_by": v["bound_by"]}
+            for k, v in out.items()}
+
+
+def _route_ms(torch, fn, reps: int = 3) -> float:
+    """Median host-clock ms of a routed call (its read-back included)."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return sorted(out)[len(out) // 2]
+
+
+def phase_mesh(torch, dev, sm_clock_mhz: float) -> dict:
+    """The mesh tier (parallel/sharding.py) on the card.
+    (a) the default inventory on this host: one slot, no mesh
+    (`mesh_plan().mesh is None`), no `device.chip*` breaker; a 256-item
+    verify, 256-message digests, a K=64 MSM and a 128-item RLC give the
+    same bytes and launches as the single-device route (`device=`).
+    (b) MESH_SLOTS virtual slots on cuda:0
+    (sharding.set_virtual_devices; on a host with several cards, as
+    `--mesh` runs it, the cards themselves): every routed entry point at sizes
+    past its gate (verify 256, every 5th forged; sha256_batch 256 and
+    sha256_batch_mixed 256 of mixed sizes; msm of config 4's 1000
+    points; msm_batch S=64 K=16; rlc_verify_batch of 128 secp256k1 and
+    128 P-256 items, 3% forged) against the one-slot route, the host
+    engines (scalar, hashlib, the native BLS engine) and the plain
+    versions on the card; launches per kernel (one a slot), the
+    bls_msm_combine launches and the `.shard` profile rows; each route's
+    ms on 4 slots of ONE card (they share its SMs: no multi-card time)
+    beside the one-slot route's; bls_msm_combine against its plain
+    version and timed (the kernels line's row).
+    (c) slot 2 faulted in the middle of a flood of verifies and RLC
+    flushes: exactly slot 2 evicted, 3 slots left, exact verdicts, the
+    device breaker closed, the health payload's mesh.evicted == [2];
+    cleared, it is readmitted after its cooldown (waited on state).
+    (d) config 1's four-replica cluster (the replica phase) on the 4
+    slots until 1,000 writes commit: crypto_shard_count registered,
+    mesh_sharded_verifies > 0 on every replica.
+    (e) graft_entry.dryrun_multichip(4)."""
+    import numpy as np
+
+    from tpubft_torch import graft_entry
+    from tpubft_torch.consensus.health import HealthMonitor
+    from tpubft_torch.crypto import bls12381 as bls
+    from tpubft_torch.crypto import scalar
+    from tpubft_torch.ops import bls12_381 as bops
+    from tpubft_torch.ops import bls12_381_cuda as bc
+    from tpubft_torch.ops import dispatch
+    from tpubft_torch.ops import ecdsa as eops
+    from tpubft_torch.ops import ed25519 as ops
+    from tpubft_torch.ops import sha256 as sha
+    from tpubft_torch.parallel import sharding
+    from tpubft_torch.utils import breaker as breaker_mod
+    from tpubft_torch.utils import flight
+    from tpubft_torch.utils.metrics import Aggregator
+    import hashlib
+
+    t_phase = time.monotonic()
+    inp = _mesh_inputs()
+    problems = []
+    cards = torch.cuda.device_count()
+    slots = cards if cards > 1 else MESH_SLOTS
+    sick = min(2, slots - 1)
+    out = {"phase": "mesh", "slots": slots, "cards": cards,
+           "note": "one card: all slots share it, so no time here is a "
+                   "multi-card time" if cards == 1 else
+                   "one slot a card"}
+
+    # (a) the default inventory
+    plan = dispatch.mesh_plan()
+    chips = sorted(breaker_mod.prefixed("device.chip"))
+    a_in = {"ed25519": inp["ed25519"], "sha": inp["merkle"],
+            "msm": (inp["msm"][0][:64], inp["msm"][1][:64]),
+            "rlc": inp["ecdsa"]["secp256k1"]}
+
+    def one_call(device):
+        reset_all_launches()
+        got = (ops.verify_batch(a_in["ed25519"], device).tolist(),
+               sha.sha256_batch(a_in["sha"], device),
+               bops.msm(*a_in["msm"], device),
+               eops.rlc_verify_batch("secp256k1", a_in["rlc"],
+                                     device).tolist())
+        return got, {k: v for k, v in all_launches().items() if v}
+    routed, routed_l = one_call(None)
+    pinned, pinned_l = one_call(dev)
+    out["default"] = {"slots": plan.n, "mesh_is_none": plan.mesh is None,
+                      "chip_breakers": chips, "launches": routed_l,
+                      "equal_to_single_device": routed == pinned,
+                      "launches_equal": routed_l == pinned_l}
+    emit({"phase": "mesh", "step": "default", **out["default"]})
+    if cards == 1 and (plan.n != 1 or plan.mesh is not None or chips):
+        problems.append(f"default inventory: {out['default']}")
+    if cards > 1 and plan.n != cards:
+        problems.append(f"{cards} cards, a plan of {plan.n} slots")
+    if routed != pinned or (cards == 1 and routed_l != pinned_l):
+        problems.append("the one-slot route differs from the "
+                        "single-device route")
+
+    # the host engines' answers
+    host = {"ed25519": [scalar.ed25519_verify(pk, m, s)
+                        for m, s, pk in inp["ed25519"]],
+            "sha256": [hashlib.sha256(m).digest() for m in inp["merkle"]],
+            "sha256_mixed": [hashlib.sha256(m).digest()
+                             for m in inp["mixed"]],
+            "msm": bls.g1_msm(*inp["msm"]),
+            "msm_batch": [bls.g1_msm(p, k) for p, k in inp["segments"]],
+            **{f"rlc_{c}": scalar.ecdsa_verify_batch(
+                [(pk, m, sg) for m, sg, pk in items], c)
+                for c, items in inp["ecdsa"].items()}}
+    mgr = dispatch.crypto_mesh()
+    mgr.set_shard_count(1)
+    one_slot = _mesh_routes(inp)
+    one_ms = {k: _route_ms(torch, f)
+              for k, f in _mesh_route_calls(inp).items()}
+
+    mgr.set_shard_count(0)
+    if cards == 1:
+        sharding.set_virtual_devices(MESH_SLOTS, dev)
+    try:
+        # (b) every route on 4 slots
+        plan = dispatch.mesh_plan()
+        flight.kernel_profiler().reset()
+        reset_all_launches()
+        four = _mesh_routes(inp)
+        launches = {k: v for k, v in all_launches().items() if v}
+        shard_rows = {k: v for k, v in
+                      flight.kernel_profiler().snapshot().items()
+                      if k.endswith(".shard")}
+        # the plain versions on the card over the same inputs
+        prep = ops.prepare_batch(inp["ed25519"])
+        plain_ed = (ops.plain_verify_kernel(*ops.to_tensors(
+            ops._pad_rows(prep, 256, 256), dev)).cpu().numpy()
+            & prep.host_valid).tolist()
+        plain_sha = {}
+        for name in ("merkle", "mixed"):
+            blob, offs = sha.pack(inp[name])
+            raw = sha.plain_sha256_raw(*sha.to_device(blob, offs, dev))
+            raw = raw.cpu().numpy().tobytes()
+            plain_sha[name] = [raw[i:i + 32] for i in range(0, len(raw), 32)]
+
+        def affine(xyz):
+            cols = [c.cpu().numpy() for c in xyz]
+            return [bops._to_affine_host(*(c[:, j] for c in cols))
+                    for j in range(cols[0].shape[1])]
+        t0 = time.perf_counter()
+        plain_msm = affine(bops.plain_msm_batch_kernel(*bops.to_tensors(
+            bops.prepare_msm_batch([inp["msm"]]), dev)))[0]
+        plain_msm_ms = (time.perf_counter() - t0) * 1e3
+        plain_batch = affine(bops.plain_msm_batch_kernel(*bops.to_tensors(
+            bops.prepare_msm_batch(inp["segments"]), dev)))
+        # each curve's first shard folded by the kernel and by its plain
+        # version, word for word
+        from tpubft_torch.ops import ecdsa_cuda as ec
+        rlc_fold_err = {}
+        for c, items in inp["ecdsa"].items():
+            rp = eops.prepare_rlc_batch(c, items)
+            cols = eops.to_tensors(eops.rlc_columns(rp, range(32)), dev)
+            rlc_fold_err[c] = int((ec.rlc(c, *cols).long()
+                                   - eops.rlc_fold_plain(c, *cols).long())
+                                  .abs().max())
+        checks = {
+            "ed25519": four["ed25519"] == one_slot["ed25519"]
+            == host["ed25519"] == plain_ed,
+            "sha256": four["sha256"] == one_slot["sha256"] == host["sha256"]
+            == plain_sha["merkle"],
+            "sha256_mixed": four["sha256_mixed"] == one_slot["sha256_mixed"]
+            == host["sha256_mixed"] == plain_sha["mixed"],
+            "msm": four["msm"] == one_slot["msm"] == host["msm"] == plain_msm,
+            "msm_batch": four["msm_batch"] == one_slot["msm_batch"]
+            == host["msm_batch"] == plain_batch,
+            **{k: four[k] == one_slot[k] == host[k]
+               for k in four if k.startswith("rlc_")},
+            "rlc_fold_vs_plain": not any(rlc_fold_err.values())}
+        # the combine kernel at the two MSM routes' shapes: the slots'
+        # partials of config 4's MSM (S=1, D=4) and of the S=64 flush
+        combine_rows = []
+        for label, segs in (("S=64 D=4", inp["segments"]),
+                            ("S=1 D=4", [inp["msm"]])):
+            kw = max(len(p) for p, _ in segs)
+            kmax = sharding.shard_rows(kw, slots) * slots
+            hostw = bops.prepare_msm_batch(
+                [(list(p) + [None] * (kmax - len(p)),
+                  list(k) + [0] * (kmax - len(p))) for p, k in segs])
+            cols = [sharding._cols(a, a.ndim - 1, slots, j)
+                    for j in range(slots) for a in hostw]
+            parts = [bc.msm(*bops.to_tensors(cols[4 * j:4 * j + 4], dev))
+                     for j in range(slots)]
+            x, y, z = (torch.stack([p[c] for p in parts], -1).contiguous()
+                       for c in range(3))
+            got = affine(bc.combine(x, y, z))
+            t0 = time.perf_counter()
+            want = affine(bops.plain_combine(x, y, z))
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            s_, d_ = int(x.shape[1]), int(x.shape[2])
+            bound = work_bound_ms(*bc.combine_work(s_, d_), sm_clock_mhz)
+            combine_rows.append({
+                "shape": label, "max_abs_err": sum(
+                    g != w for g, w in zip(got, want)),
+                "ms": graph_ms(lambda: bc.combine(x, y, z), 20),
+                "host_ms": cuda_ms(lambda: bc.combine(x, y, z), 20),
+                "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+                "bound_by": bound["bound_by"], "ops": bound["ops"],
+                "bytes": bound["bytes"]})
+        mesh_ms = {k: _route_ms(torch, f)
+                   for k, f in _mesh_route_calls(inp).items()}
+        out["routes"] = {
+            "route_bounds": _mesh_route_bounds(inp, sm_clock_mhz),
+            "plan_slots": plan.n, "launches": launches,
+            "shard_profile": shard_rows, "checks": checks,
+            "rlc_fold_max_abs_err": rlc_fold_err,
+            "plain_msm_1000_ms": plain_msm_ms,
+            "route_ms_mesh": mesh_ms,
+            "route_ms_one_slot": one_ms, "combine": combine_rows}
+        emit({"phase": "mesh", "step": "routes", **out["routes"]})
+        if plan.n != slots:
+            problems.append(f"the plan has {plan.n} slots")
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            problems.append(f"mesh routes disagree: {bad}")
+        for k in ("ed25519_verify", "sha256", "bls_msm"):
+            if launches.get(k, 0) < slots:
+                problems.append(f"{k} launched {launches.get(k, 0)} times")
+        if launches.get("bls_msm_combine", 0) < 2:
+            problems.append("bls_msm_combine not launched on the MSM routes")
+        if any(r["max_abs_err"] for r in combine_rows):
+            problems.append("bls_msm_combine disagrees with its plain version")
+        for k in ("ed25519.shard", "sha256.shard", "bls_msm.shard",
+                  "ecdsa.shard"):
+            if k not in shard_rows:
+                problems.append(f"no {k} profile row")
+        out["combine_launches"] = launches.get("bls_msm_combine", 0)
+        out["combine_rows"] = combine_rows
+
+        # (c) slot 2 evicted in the middle of a flood, then readmitted
+        br = dispatch.device_breaker()
+        br.reset()
+        br0 = br.snapshot()
+        ev0 = mgr.snapshot()["evictions"]
+        flood_ok = True
+        for i in range(6):
+            if i == 2:
+                sharding.inject_chip_fault(sick)
+            flood_ok &= ops.verify_batch(inp["ed25519"]).tolist() \
+                == host["ed25519"]
+            flood_ok &= eops.rlc_verify_batch(
+                "secp256k1", inp["ecdsa"]["secp256k1"]).tolist() \
+                == host["rlc_secp256k1"]
+        snap = mgr.snapshot()
+        health = HealthMonitor("mesh-phase", Aggregator()).verdict()
+        evict = {"verdicts_exact": flood_ok,
+                 "sick_slot": sick,
+                 "sick_breaker": mgr.chip_breaker(sick).state,
+                 "plan_slots": dispatch.mesh_plan().n,
+                 "evictions": snap["evictions"] - ev0,
+                 "last_rebalance_ms": snap["last_rebalance_ms"],
+                 "device_breaker": br.state,
+                 "device_breaker_failures":
+                     br.snapshot()["failures"] - br0["failures"],
+                 "health_mesh": health.get("mesh")}
+        sharding.clear_chip_faults()
+        t0 = time.monotonic()
+        while dispatch.mesh_plan().n < slots \
+                and time.monotonic() - t0 < 60:
+            time.sleep(0.02)
+        evict["readmitted_after_s"] = time.monotonic() - t0
+        evict["plan_slots_after"] = dispatch.mesh_plan().n
+        evict["readmits"] = mgr.snapshot()["readmits"]
+        out["eviction"] = evict
+        emit({"phase": "mesh", "step": "eviction", **evict})
+        if not flood_ok or evict["sick_breaker"] == "closed" \
+                or evict["plan_slots"] != slots - 1 \
+                or evict["evictions"] != 1 or br.state != "closed" \
+                or evict["device_breaker_failures"] \
+                or (evict["health_mesh"] or {}).get("evicted") != [sick] \
+                or evict["plan_slots_after"] != slots:
+            problems.append(f"eviction: {evict}")
+
+        # (d) config 1's cluster on the slots
+        rep = phase_replica(torch, dev, target=1000, label="mesh_replica")
+        knobs = rep["tuner"].get("knobs_r0", {})
+        cluster = {k: rep[k] for k in (
+            "committed", "requests_per_s", "commit_latency_ms",
+            "mesh_sharded_verifies", "verify_launches", "shard_profile")}
+        cluster["crypto_shard_count"] = knobs.get("crypto_shard_count")
+        out["cluster"] = cluster
+        if cluster["crypto_shard_count"] is None:
+            problems.append("crypto_shard_count is not registered")
+        if not all(v > 0 for v in cluster["mesh_sharded_verifies"]):
+            problems.append("a replica counted no sharded verify")
+
+        # (e) the graft entry's dry run
+        t0 = time.monotonic()
+        graft_entry.dryrun_multichip(slots)
+        out["dryrun_s"] = time.monotonic() - t0
+    finally:
+        sharding.clear_chip_faults()
+        sharding.set_virtual_devices(None)
+        mgr.reset()
+    out["wall_s"] = time.monotonic() - t_phase
+    emit({k: v for k, v in out.items()
+          if k not in ("routes", "eviction", "default", "combine_rows")})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
 def phase_ledger(torch, dev, blocks: int = 800, chunk: int = 64) -> dict:
     """Config 1's categorized ledger at the kvbcbench block shape, device
     hashing against hashlib: ingested in add_blocks chunks of 64 as the
@@ -2985,7 +3414,8 @@ def sha256_rate_row(torch, dev, b: int, sm_clock_mhz: float) -> dict:
 
 def phase_kernels(torch, dev, plane, replica, ledger_replica, kernel,
                   ladder, ledger, digest, bls_plane, bls_ledger,
-                  ecdsa_plane, ecdsa_ledger, offload, sm_clock_mhz) -> dict:
+                  ecdsa_plane, ecdsa_ledger, offload, mesh,
+                  sm_clock_mhz) -> dict:
     """Every kernel, timed at its path's shape: the verify kernel at one
     PrePrepare drain of 100 signatures, the ladder kernels at the ladder's
     1024 lanes, SHA-256 at a state-transfer window of 64 raw blocks that
@@ -3057,6 +3487,7 @@ def phase_kernels(torch, dev, plane, replica, ledger_replica, kernel,
                             sm_clock_mhz)
     rows += ecdsa_kernel_rows(torch, dev, ecdsa_plane, ecdsa_ledger, offload,
                               sm_clock_mhz)
+    rows.append(combine_kernel_row(mesh))
     out = {"kernels": rows}
     emit(out)
     bad = [r["name"] for r in rows if r["max_abs_err"]]
@@ -3152,6 +3583,24 @@ def sha256_kernel_row(torch, dev, ledger_replica, ledger, digest,
             "library_ms": None,
             "hashlib_host_ms": hashlib_ms,
             "path": "state-transfer digests (ledger replica catch-up)"}
+
+
+def combine_kernel_row(mesh) -> dict:
+    """bls_msm_combine at the mesh phase's S=64 flush shape (its 4
+    slots' partials), with the config-4 shape beside it; launches are the
+    mesh phase's sharded MSM routes."""
+    flush, config4 = mesh["combine_rows"]
+    return {"name": "bls_msm_combine", "route": "cuda",
+            "source": "tpubft_torch/ops/csrc/bls12_381_msm.cu",
+            "replaces": "tpubft/parallel/sharding.py:80-85 (all_gather + "
+                        "msm_reduce; :219-223)",
+            "path": "mesh: sharded msm / msm_batch on 4 slots of one card",
+            "launches": mesh["combine_launches"],
+            **{k: flush[k] for k in ("shape", "max_abs_err", "ms",
+                                     "host_ms", "plain_ms", "bound_ms",
+                                     "bound_by", "ops", "bytes")},
+            "max_abs_err": flush["max_abs_err"] + config4["max_abs_err"],
+            "config4": config4, "library_ms": None}
 
 
 def bls_kernel_rows(torch, dev, bls_plane, bls_ledger, offload,
@@ -3266,6 +3715,13 @@ def main() -> int:
     t_start = time.monotonic()
     info = phase_device(torch)
     clock = info["clocks_max_sm_mhz"]
+    if sys.argv[1:] == ["--mesh"]:
+        # the mesh phase alone: over the host's cards where it has
+        # several, else over virtual slots of the one card
+        phase_mesh(torch, dev, clock)
+        emit({"phase": "done", "wall_s": time.monotonic() - t_start})
+        print(info["nvidia_smi"], flush=True)
+        return 0
     ladder = phase_ladder(torch, dev, clock)
     kernel = phase_kernel(torch, dev)
     plane = phase_plane(torch, dev)
@@ -3276,12 +3732,13 @@ def main() -> int:
     ecdsa_plane = phase_ecdsa_plane(torch, dev)
     ecdsa_ledger = phase_ecdsa_ledger_replica(torch, dev)
     offload = phase_offload(torch, dev, bls_plane, ecdsa_plane)
+    mesh = phase_mesh(torch, dev, clock)
     ledger = phase_ledger(torch, dev)
     digest = phase_digest(torch, dev, ledger.pop("raws"))
     phase_rate(torch, dev, clock, info["nvidia_smi"])
     phase_kernels(torch, dev, plane, replica, ledger_replica, kernel, ladder,
                   ledger, digest, bls_plane, bls_ledger, ecdsa_plane,
-                  ecdsa_ledger, offload, clock)
+                  ecdsa_ledger, offload, mesh, clock)
     emit({"phase": "done", "wall_s": time.monotonic() - t_start})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

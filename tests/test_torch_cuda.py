@@ -621,3 +621,70 @@ def test_ecdsa_wrappers_refuse_bad_cuda_tensors(card, case):
         with pytest.raises(ValueError):
             ec.verify("secp256k1", w, w, bad, w, w, w)
     assert ec.LAUNCHES == before
+
+
+# ---- the mesh tier on one card (parallel/sharding.py) ----
+
+@pytest.mark.parametrize("shape", [(1, 2), (1, 4), (64, 4), (3, 17)])
+def test_bls_msm_combine_matches_plain(card, shape):
+    """bls_msm_combine against its plain version on D partial points a
+    segment (the MSM kernel's own outputs, one an identity column where
+    a segment is all None)."""
+    from tpubft_torch.ops import bls12_381 as B
+    from tpubft_torch.ops import bls12_381_cuda as bc
+    s, d = shape
+    parts = []
+    for j in range(d):
+        segs = _bls_segments(s, 3, seed=7 * j + s)
+        if j == 1:
+            segs[0] = ([None, None, None], [1, 2, 3])
+        parts.append(B.msm_batch_kernel(
+            *B.to_tensors(B.prepare_msm_batch(segs), card)))
+    x, y, z = (torch.stack([p[c] for p in parts], -1).contiguous()
+               for c in range(3))
+    before = bc.LAUNCHES["bls_msm_combine"]
+    got = [t.cpu().numpy() for t in bc.combine(x, y, z)]
+    assert bc.LAUNCHES["bls_msm_combine"] == before + 1
+    plain = [t.cpu().numpy() for t in B.plain_combine(x, y, z)]
+
+    def affine(xyz):
+        return [B._to_affine_host(*(c[:, j] for c in xyz))
+                for j in range(xyz[0].shape[1])]
+    assert affine(got) == affine(plain)
+
+
+def test_slot_streams_on_one_card_match_the_one_slot_route(card):
+    """Four virtual slots on cuda:0, each launching on its own stream:
+    the verify, digest, MSM and RLC routes give the one-slot route's
+    answers, with one launch a slot and one combine."""
+    from tpubft_torch.crypto import bls12381 as bls
+    from tpubft_torch.ops import bls12_381 as B
+    from tpubft_torch.ops import bls12_381_cuda as bc
+    from tpubft_torch.ops import ecdsa as E
+    from tpubft_torch.ops import ecdsa_cuda as ec
+    from tpubft_torch.parallel import sharding
+    items = testing.ed25519_corpus(256, seed=5)
+    msgs = _sha_messages(256, True)
+    segs = _bls_segments(1, 64, seed=64)
+    eitems = testing.ecdsa_corpus("secp256k1", 128, seed=2, forged=(3, 77))
+    one = (ops.verify_batch(items), sha.sha256_batch_mixed(msgs),
+           B.msm(*segs[0]), E.rlc_verify_batch("secp256k1", eitems))
+    sharding.set_virtual_devices(4, card)
+    try:
+        assert sharding.mesh_manager().plan().n == 4
+        launches = dict(kc.LAUNCHES, **sha256_cuda.LAUNCHES, **bc.LAUNCHES,
+                        **ec.LAUNCHES)
+        four = (ops.verify_batch(items), sha.sha256_batch_mixed(msgs),
+                B.msm(*segs[0]), E.rlc_verify_batch("secp256k1", eitems))
+        after = dict(kc.LAUNCHES, **sha256_cuda.LAUNCHES, **bc.LAUNCHES,
+                     **ec.LAUNCHES)
+    finally:
+        sharding.set_virtual_devices(None)
+    assert four[0].tolist() == one[0].tolist()
+    assert four[1] == one[1] and four[2] == one[2] \
+        == bls.g1_msm(*segs[0])
+    assert four[3].tolist() == one[3].tolist()
+    delta = {k: after[k] - launches[k] for k in after}
+    assert delta["ed25519_verify"] == 4 and delta["sha256"] == 4
+    assert delta["bls_msm"] == 4 and delta["bls_msm_combine"] == 1
+    assert delta["ecdsa_rlc"] >= 4

@@ -212,8 +212,13 @@ class HealthMonitor:
             agg = HEALTHY
         out = {"verdict": agg, "stalled": stalled, "probes": probes,
                "breakers": breakers, "degraded": degraded}
-        # Port divergence (reference health.py:215-222): the mesh
-        # summary is left out; the mesh tier is not ported (ROADMAP A.7).
+        # mesh summary: the slot inventory and evictions, visible without
+        # decoding the `device.chip<N>` breaker rows; only once the mesh
+        # manager exists (making it here would ask for the device)
+        mgr = getattr(sys.modules.get("tpubft_torch.parallel.sharding"),
+                      "_MESH_MGR", None)
+        if mgr is not None:
+            out["mesh"] = mgr.snapshot()
         # offload summary: helper roster / quarantine set / lease
         # counters, visible without decoding per-helper `helper.<id>`
         # breaker rows. Gated on the module being live so offload-off

@@ -22,8 +22,8 @@ tier's (`ecdsa_batched_host`, `pubkey_memo_hits`, `ecdsa_pk_evictions`,
 `ecdsa_comb_evictions`, `ecdsa_host_us`, the `sigmgr<id>.ecdsa_host_batch`
 histogram) folded from the scalar engine's attributed stats sink.
 This takes the per-message sig check off the dispatcher thread, the
-reference's RequestThreadPool role. The mesh counter
-(`mesh_sharded_verifies`) waits for the mesh tier (ROADMAP A.7).
+reference's RequestThreadPool role. `mesh_sharded_verifies` counts the
+items dispatched while the mesh plan spans more than one slot.
 """
 from __future__ import annotations
 
@@ -104,6 +104,11 @@ class SigManager:
         # (dispatch count, not verdicts — failures land in sig_failures)
         self.sigs_device_dispatched = self.metrics.register_counter(
             "sigs_device_dispatched")
+        # of those, items dispatched while the mesh spans more than one
+        # slot: dispatched minus sharded shows single-device stretches
+        # (evictions, a capped `crypto_shard_count`) on live telemetry
+        self.mesh_sharded_verifies = self.metrics.register_counter(
+            "mesh_sharded_verifies")
         # verified-signature memo: bounded LRU of (principal, current
         # pubkey, sha256(data), sig) that already verified under the
         # CURRENT key. Retransmissions and view-change re-validation
@@ -579,6 +584,9 @@ class SigManager:
                     f"for {len(entries)} items")
         # counts only what actually reached the device dispatch
         self.sigs_device_dispatched.inc(len(entries))
+        from tpubft_torch.ops.dispatch import mesh_shards
+        if mesh_shards() > 1:
+            self.mesh_sharded_verifies.inc(len(entries))
         out = [False] * len(items)
         via_grace = [False] * len(items)
         for i, ok in zip(keyed, verdicts):

@@ -101,12 +101,21 @@ def ecdsa_crossover() -> int:
     TPUBFT_ECDSA_CROSSOVER_B (read on every call: tests flip it at
     runtime), then CARD_ECDSA_CROSSOVER where the port's default device
     is a card and 1 << 30 where it is the CPU, on which the plain fold
-    runs op by op. A missing card raises device.NoDevice. The reference
-    asks jax.devices() once (tpu.py:51-60) and divides the static tiers
-    by the healthy mesh width (tpu.py:83-92); the port has one device
-    and no mesh (ROADMAP A.7), so nothing is divided."""
+    runs op by op. A missing card raises device.NoDevice. The static
+    tiers (env and device default) are divided by the mesh's shard count
+    (reference tpu.py:81-92): d slots fold a group at about 1/d the
+    batch; the override is exempt, since its policy already measures the
+    mesh-backed per-item cost."""
     if _crossover_override is not None:
         return _crossover_override
+    base = _device_crossover()
+    if base <= 1:
+        return base
+    from tpubft_torch.ops import dispatch
+    return max(1, base // max(1, dispatch.mesh_shards()))
+
+
+def _device_crossover() -> int:
     v = os.environ.get("TPUBFT_ECDSA_CROSSOVER_B")
     if v is not None:
         try:

@@ -26,10 +26,19 @@ Port divergences, each also marked where it sits:
   * the kernel takes each scalar as eight little-endian 32-bit words
     (`_scalar_words`), not the reference's (255, B) bit matrix, whose
     host loop `_bits_msb_batch` (bls12_381.py:38-43) it replaces;
-  * no power-of-two padding of the segment count or width (the
-    reference pads for XLA's compile cache, :68-70, :166-167);
-  * no mesh tier (`_msm_launch`'s plan, `dispatch.mesh_plan`): ROADMAP
-    A.7. `device_section` takes no shard count.
+  * no power-of-two padding of the segment count or width on the
+    single-device route (the reference pads for XLA's compile cache,
+    :68-70, :166-167); the mesh route pads the share axis to pow2
+    columns a slot as the reference does;
+  * an explicit `device=` pins the single-device route (the reference
+    has no `device` argument).
+
+The mesh route (`_mesh_launch`, the reference's :81-120, :155-217):
+without a device, a batch whose share width reaches twice the plan's
+slots is sharded along K, each slot running the MSM kernel on its
+columns, and the slots' partial points are summed by `combine_kernel`
+on the plan's first slot (ops/csrc/bls12_381_msm.cu's bls_msm_combine
+through ops/bls12_381_cuda.combine; `plain_combine` for CPU tensors).
 """
 from __future__ import annotations
 
@@ -183,6 +192,27 @@ def msm_batch_kernel(words, px, py, infinity) -> Tuple[torch.Tensor, ...]:
     return plain_msm_batch_kernel(words, px, py, infinity)
 
 
+def plain_combine(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor
+                  ) -> Tuple[torch.Tensor, ...]:
+    """The combine kernel's function in plain PyTorch: D projective
+    partial points a segment, x/y/z (12, S, D) canonical Montgomery
+    words -> their sums (X, Y, Z), each (12, S), by the Curve's complete
+    additions in the reference's msm_reduce order (sharding.py:85,
+    :223)."""
+    cv = g1_curve()
+    out = cv.msm_reduce(WPoint(*(from_words(c) for c in (x, y, z))))
+    return tuple(cv.f.to_words(c[..., 0]) for c in out)
+
+
+def combine_kernel(x, y, z) -> Tuple[torch.Tensor, ...]:
+    """CUDA tensors launch the combine kernel (ops/bls12_381_cuda.combine),
+    CPU tensors take the plain version."""
+    if x.device.type == "cuda":
+        from tpubft_torch.ops import bls12_381_cuda
+        return bls12_381_cuda.combine(x, y, z)
+    return plain_combine(x, y, z)
+
+
 def scalar_mul_kernel(words, px, py, infinity) -> Tuple[torch.Tensor, ...]:
     """CUDA tensors launch the kernel (ops/bls12_381_cuda.scalar_mul), CPU
     tensors take the plain version."""
@@ -198,23 +228,67 @@ def _read(t: Tuple[torch.Tensor, ...]) -> List[np.ndarray]:
     return [c.cpu().numpy() for c in t]
 
 
+def _single_launch(segments, dev: torch.device, batch: int) -> List:
+    from tpubft_torch.ops.dispatch import device_section
+    host = prepare_msm_batch(segments)
+    with device_section("bls_msm", batch=batch):
+        x, y, z = _read(msm_batch_kernel(*to_tensors(host, dev)))
+    # host-side affine conversion stays outside the gate
+    return [_to_affine_host(x[:, j], y[:, j], z[:, j])
+            for j in range(len(segments))]
+
+
+def _mesh_launch(plan, segments, batch: Optional[int]) -> List:
+    """One launch under a MeshPlan: the share axis padded with identity
+    lanes to pow2 columns a slot and sharded over the plan's slots, the
+    slots' partials combined on its first slot. `batch`: the profile's
+    batch (the padded width for `msm`, as the reference's :93-95; the
+    lanes for `msm_batch`, :211-212). A plan that eviction shrank to one
+    slot takes the single-device route on that slot's device."""
+    total = sum(len(p) for p, _ in segments)
+    if plan.mesh is None:
+        return _single_launch(segments, plan.devices[0].device, total)
+    from tpubft_torch.ops.dispatch import device_section
+    from tpubft_torch.parallel import sharding
+    shards = plan.n
+    kwidth = max(1, max(len(p) for p, _ in segments))
+    kmax = sharding.shard_rows(kwidth, shards) * shards
+    host = prepare_msm_batch([(list(p) + [None] * (kmax - len(p)),
+                               list(k) + [0] * (kmax - len(p)))
+                              for p, k in segments])
+    kern = sharding.mesh_manager().cached_kernel(
+        "bls_msm.batch", plan, sharding.sharded_msm_batch_kernel)
+    with device_section("bls_msm", batch=kmax if batch is None else batch,
+                        shards=shards):
+        x, y, z = kern(*host)
+    return [_to_affine_host(x[:, j], y[:, j], z[:, j])
+            for j in range(len(segments))]
+
+
+def _route(segments, device: Optional[torch.device],
+           mesh_batch: Optional[int]) -> List:
+    # Port divergence: the reference has no `device` argument; an
+    # explicit device pins the single-device route
+    if device is None:
+        from tpubft_torch.ops import dispatch
+        plan = dispatch.mesh_plan()
+        kwidth = max(1, max(len(p) for p, _ in segments))
+        # mesh gate (reference :115, :171): at least two shares a slot
+        if plan.mesh is not None and kwidth >= 2 * plan.n:
+            return dispatch.mesh_launch(
+                "bls_msm", lambda p: _mesh_launch(p, segments, mesh_batch))
+    return _single_launch(segments, _device.resolve(device),
+                          sum(len(p) for p, _ in segments))
+
+
 def msm_batch(segments: Sequence[Tuple[Sequence, Sequence[int]]],
               device: Optional[torch.device] = None) -> List:
     """Cross-slot fused MSM: each segment is (points, scalars); the whole
-    batch is ONE launch. Returns one affine point (or None for the
-    identity) per segment."""
-    s = len(segments)
-    if s == 0:
+    batch is ONE launch (one a slot on the mesh, then the combine).
+    Returns one affine point (or None for the identity) per segment."""
+    if len(segments) == 0:
         return []
-    from tpubft_torch.ops.dispatch import device_section
-    host = prepare_msm_batch(segments)
-    dev = _device.resolve(device)
-    total = sum(len(p) for p, _ in segments)
-    # no shard count: the port has no mesh tier (ROADMAP A.7)
-    with device_section("bls_msm", batch=total):
-        x, y, z = _read(msm_batch_kernel(*to_tensors(host, dev)))
-    # host-side affine conversion stays outside the gate
-    return [_to_affine_host(x[:, j], y[:, j], z[:, j]) for j in range(s)]
+    return _route(segments, device, sum(len(p) for p, _ in segments))
 
 
 def msm(points: Sequence, scalars: Sequence[int],
@@ -224,7 +298,7 @@ def msm(points: Sequence, scalars: Sequence[int],
     batched kernel."""
     if len(points) == 0:
         return None
-    return msm_batch([(points, scalars)], device)[0]
+    return _route([(points, scalars)], device, None)[0]
 
 
 def combine_shares(ids: Sequence[int], shares_g1: Sequence,

@@ -1,12 +1,16 @@
 """Wrapper of the hand-written Hopper BLS12-381 G1 kernels
 (csrc/bls12_381_msm.cu), the port of tpubft/ops/bls12_381.py's
-msm_kernel, msm_batch_kernel and batch_scalar_mul's kernel.
+msm_kernel, msm_batch_kernel and batch_scalar_mul's kernel, and of the
+sharded MSM's cross-shard combine (tpubft/parallel/sharding.py:80-85,
+:219-223).
 
 Contract: `msm(words, px, py, infinity)` takes words int64 (8, S, K),
 px/py int64 (12, S, K) and infinity bool (S, K) on one card and returns
 projective (X, Y, Z), each int64 (12, S) canonical Montgomery words;
 `scalar_mul` takes (8, B), (12, B), (12, B), (B,) and returns (12, B) x 3
-(the same launch with S = B segments of one point). Precondition: every
+(the same launch with S = B segments of one point); `combine(x, y, z)`
+takes D partial points a segment, (12, S, D) int64 x 3 canonical
+Montgomery words, and returns their sums (12, S) x 3. Precondition: every
 point lies in the order-r subgroup (the kernel signs each scalar and
 splits it by GLV, which computes [k] P only there); the callers' points
 are shares and keys decompressed with the subgroup check. Built by nvcc
@@ -36,7 +40,8 @@ import torch
 from tpubft_torch.crypto.bls12381 import R
 from tpubft_torch.ops import _build
 
-LAUNCHES: Dict[str, int] = {"bls_msm": 0, "bls_mul": 0}
+LAUNCHES: Dict[str, int] = {"bls_msm": 0, "bls_mul": 0,
+                            "bls_msm_combine": 0}
 
 SOURCES = ("bls12_381_msm.cu",)
 
@@ -74,6 +79,8 @@ def library() -> ctypes.CDLL:
     lib = _build.load("bls12_381_msm", SOURCES)
     lib.bls_msm_launch.argtypes = [_P] * 8 + [_I] * 3 + [_P]
     lib.bls_msm_launch.restype = _I
+    lib.bls_combine_launch.argtypes = [_P] * 7 + [_I] * 3 + [_P]
+    lib.bls_combine_launch.restype = _I
     lib.bls_probe_launch.argtypes = [_I, _I, _P, _P, _P]
     lib.bls_probe_launch.restype = _I
     lib.bls_error_string.argtypes = [_I]
@@ -162,6 +169,40 @@ def scalar_mul(words: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
     if b == 0:
         raise ValueError("scalar_mul needs B >= 1 lanes")
     return _launch(words, px, py, infinity, b, 1, lanes, "bls_mul")
+
+
+def combine(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
+            lanes: int = LANES) -> Tuple[torch.Tensor, ...]:
+    """The sums of D projective partial points a segment: x, y, z
+    (12, S, D) int64 canonical Montgomery words on one card -> (X, Y, Z),
+    each (12, S), on that card (not synchronised)."""
+    if x.dim() != 3 or x.shape[0] != 12:
+        raise ValueError(f"x must be (12, S, D) (got {tuple(x.shape)})")
+    s, d = int(x.shape[1]), int(x.shape[2])
+    dev = x.device
+    for t, name in ((x, "x"), (y, "y"), (z, "z")):
+        _require(t, name, torch.int64, (12, s, d), dev)
+    if s == 0 or d == 0:
+        raise ValueError("combine needs S >= 1 segments of D >= 1 points")
+    lib = library()
+    out = [torch.empty((12, s), dtype=torch.int64, device=dev)
+           for _ in range(3)]
+    partial = torch.empty(s * d * PTW, dtype=torch.int32, device=dev)
+    err = lib.bls_combine_launch(
+        x.data_ptr(), y.data_ptr(), z.data_ptr(),
+        *(t.data_ptr() for t in out), partial.data_ptr(), s, d, lanes,
+        _stream(dev))
+    _raise(lib, err, "bls_msm_combine")
+    LAUNCHES["bls_msm_combine"] += 1
+    return tuple(out)
+
+
+def combine_work(s: int, d: int) -> tuple:
+    """(operations, bytes) of the combine on S segments of D partials:
+    D - 1 projective additions a segment at MULS_ADD field multiplies
+    each; each input word read once, each output word written once."""
+    ops = s * max(d - 1, 0) * MULS_ADD * OPS_PER_FIELD_MUL
+    return ops, (s * d + s) * 3 * 12 * 8
 
 
 def reset_launches() -> None:

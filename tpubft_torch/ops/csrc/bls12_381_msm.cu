@@ -901,6 +901,52 @@ bls_reduce_kernel(const uint32_t* __restrict__ partial, int64_t* ox,
     store_final<L>(slot, c, mask, gid == 0, ox, oy, oz, S, s);
 }
 
+// ---------------- the mesh's cross-shard combine ----------------
+//
+// bls_msm_combine: the sum of D partial points a segment, the partials
+// that D slots' MSM launches left (ops/bls12_381_cuda.combine, from
+// parallel/sharding.sharded_msm_batch_kernel). Replaces the reference's
+// all_gather of the per-device partials and its local msm_reduce inside
+// the shard_map programs of tpubft/parallel/sharding.py
+// (sharded_msm_kernel :80-85, sharded_msm_batch_kernel :219-223), which
+// XLA compiled; no Pallas kernel. Input: x, y, z (12, S, D) int64,
+// canonical Montgomery words (the layout bls_msm_launch writes, one
+// column a slot); output (12, S) x 3, canonical. A first kernel packs
+// the partials into bls_reduce_kernel's own layout (PTW uint32 a point:
+// X, Y, Z words in order), then bls_reduce_kernel's tree sums each
+// segment in one CTA of min(D, MAX_CHAINS) groups. What bounds it: one
+// group's chain of additions (ceil(D / G) plus log2 G, each 6 paired
+// product steps), a few microseconds; the bytes (3 x 12 x 8 bytes a
+// partial) and the operations are far below the card's rates.
+__global__ void bls_pack_partials(const int64_t* __restrict__ x,
+                                  const int64_t* __restrict__ y,
+                                  const int64_t* __restrict__ z,
+                                  uint32_t* partial, long long total,
+                                  long long sd) {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= total) return;
+    const int w = (int)(i % PTW);
+    const long long q = i / PTW;              // s D + j
+    const int64_t* src = w < NW ? x : w < 2 * NW ? y : z;
+    partial[i] = (uint32_t)src[(long long)(w % NW) * sd + q];
+}
+
+template <int L>
+static int combine(const int64_t* x, const int64_t* y, const int64_t* z,
+                   int64_t* ox, int64_t* oy, int64_t* oz, uint32_t* partial,
+                   int S, int D, cudaStream_t st) {
+    const long long sd = (long long)S * D, total = sd * PTW;
+    const int threads = 256;
+    bls_pack_partials<<<(unsigned)((total + threads - 1) / threads), threads,
+                        0, st>>>(x, y, z, partial, total, sd);
+    int err = (int)cudaGetLastError();
+    if (err) return err;
+    const int groups = D < MAX_CHAINS ? D : MAX_CHAINS;
+    bls_reduce_kernel<L><<<S, groups * L, groups * 2 * PTW * sizeof(uint32_t),
+                           st>>>(partial, ox, oy, oz, S, D);
+    return (int)cudaGetLastError();
+}
+
 // clock64 cycles of `iters` dependent field products, of `iters` steps
 // of two dependent products side by side (f_mul2) and of iters / 8
 // dependent doublings on one group (block 0, one group a block).
@@ -984,6 +1030,23 @@ int bls_msm_launch(const int64_t* words, const int64_t* px,
         case 4:
             return launch<4>(words, px, py, inf, ox, oy, oz, partial, S, K,
                              sms, st);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// S segments of D partial points each, x/y/z (12, S, D) -> their sums
+// (12, S) x 3, on `lanes` (1, 2 or 4) lanes an element; `partial`: S D
+// PTW uint32 of scratch.
+int bls_combine_launch(const int64_t* x, const int64_t* y, const int64_t* z,
+                       int64_t* ox, int64_t* oy, int64_t* oz,
+                       uint32_t* partial, int S, int D, int lanes,
+                       void* stream) {
+    if (S <= 0 || D <= 0) return 0;
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (lanes) {
+        case 1: return combine<1>(x, y, z, ox, oy, oz, partial, S, D, st);
+        case 2: return combine<2>(x, y, z, ox, oy, oz, partial, S, D, st);
+        case 4: return combine<4>(x, y, z, ox, oy, oz, partial, S, D, st);
     }
     return (int)cudaErrorInvalidValue;
 }

@@ -16,8 +16,9 @@ device exceptions and latency-SLO breaches count against the failure
 budget, a tripped breaker fast-fails callers into their host fallbacks
 with `BreakerOpen` instead of queueing work behind a dead card, and
 half-open probe batches re-admit the device once it recovers. The
-offload tier is fronted here too (`offload_pool`); the reference's mesh
-tier waits for its slice (ROADMAP A.7).
+mesh tier (`mesh_plan`, `mesh_launch`: sharded launches over the slots
+of parallel/sharding.py, with per-slot fault isolation) and the offload
+tier (`offload_pool`) are fronted here too.
 """
 from __future__ import annotations
 
@@ -49,12 +50,14 @@ class _Section:
     breaker state). Raises BreakerOpen without touching the device when
     tripped."""
 
-    __slots__ = ("_attempt", "_kind", "_batch", "_kid", "_t0", "_rec")
+    __slots__ = ("_attempt", "_kind", "_batch", "_kid", "_t0", "_rec",
+                 "_shards")
 
-    def __init__(self, kind: str, batch: int) -> None:
+    def __init__(self, kind: str, batch: int, shards: int = 1) -> None:
         self._attempt = _breaker.attempt(kind)
         self._kind = kind
         self._batch = batch
+        self._shards = max(1, shards)
         # TPUBFT_FLIGHT=0 covers the kernel profiler too (decided once
         # per section — consistent even if the test hook flips mid-call)
         self._rec = flight.enabled()
@@ -87,15 +90,75 @@ class _Section:
             # is the post-call one
             flight.record(flight.EV_DEV_EXIT, view=self._kid,
                           arg=int(elapsed_ns // 1000))
-            flight.kernel_profiler().record(self._kind, self._batch,
-                                            elapsed_ns, _breaker.state)
+            prof = flight.kernel_profiler()
+            prof.record(self._kind, self._batch, elapsed_ns, _breaker.state)
+            if self._shards > 1:
+                # the per-shard view of the same launch: the shards run
+                # side by side, so the wall time is shared and the batch
+                # is a shard's slice — the row the `crypto_shard_count`
+                # policy compares against the unsharded kind
+                prof.record(f"{self._kind}.shard",
+                            max(1, -(-self._batch // self._shards)),
+                            elapsed_ns, _breaker.state)
         return suppressed
 
 
-def device_section(kind: str, batch: int = 0) -> _Section:
+def device_section(kind: str, batch: int = 0, shards: int = 1) -> _Section:
     """Guarded device seam. `batch` annotates the kernel profile and the
-    flight ring with the call's batch size (0 = not reported)."""
-    return _Section(kind, batch)
+    flight ring with the call's batch size (0 = not reported); `shards >
+    1` marks a mesh launch and adds a `<kind>.shard` profile row at the
+    per-shard batch."""
+    return _Section(kind, batch, shards)
+
+
+# ---------------------------------------------------------------------
+# mesh tier: sharded launches over the slots of a plan
+# ---------------------------------------------------------------------
+
+def crypto_mesh():
+    """The process-wide CryptoMesh control plane (reference
+    dispatch.py:138-143): the health plane and the `crypto_shard_count`
+    knob's actuator reach it here; ops modules use `mesh_plan` and
+    `mesh_launch` below."""
+    from tpubft_torch.parallel.sharding import mesh_manager
+    return mesh_manager()
+
+
+def mesh_plan():
+    """The current routing decision (probes cooled-down slots for
+    readmission on the way). `plan.mesh is None` for one slot — callers
+    take their single-device route."""
+    return crypto_mesh().plan()
+
+
+def mesh_shards() -> int:
+    """Shards the next mesh launch would use (1 = no mesh)."""
+    return crypto_mesh().plan().n
+
+
+def mesh_launch(kind: str, launch):
+    """One sharded launch with per-slot fault isolation (reference
+    dispatch.py:158-183): `launch(plan)` runs under the current plan; if
+    it raises, every slot of the plan is probed, a slot that fails its
+    probe is evicted (its `device.chip<N>` breaker trips), and the launch
+    is retried over the survivors. Only when no slot can be blamed does
+    the error reach the caller. `launch` must take a plan whose mesh is
+    None (its single-device route), so the loop always ends.
+
+    BreakerOpen passes straight through: the global device breaker open
+    means the whole plane is degraded — the caller's host-fallback
+    signal, not a reason to rebalance."""
+    mgr = crypto_mesh()
+    while True:
+        plan = mgr.plan()
+        try:
+            mgr.raise_if_faulted(plan)
+            return launch(plan)
+        except BreakerOpen:
+            raise
+        except Exception:
+            if not mgr.on_launch_failure(plan, kind):
+                raise
 
 
 # ---------------------------------------------------------------------

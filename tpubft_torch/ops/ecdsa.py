@@ -54,10 +54,17 @@ in Jacobian coordinates is X - r Z^2.
 Port divergences, each also marked where it sits:
   * scalars go in as (8, B) words, not the reference's (256, B) bit
     matrices (`_bits_msb`, ecdsa.py:98): the host packs 32 times less;
-  * no power-of-two padding (ecdsa.py:316-319): the kernel takes any B,
-    and the `active` mask only marks host-invalid lanes;
-  * no mesh tier (`_rlc_mesh_round`, ecdsa.py:330-378, 414-421): ROADMAP
-    A.7. `device_section` takes no shard count.
+  * no power-of-two padding on the single-device route (ecdsa.py:316-319):
+    the kernel takes any B, and the `active` mask only marks host-invalid
+    lanes; the mesh route pads to pow2 rows a slot as the reference does;
+  * an explicit `device=` pins the single-device route (the reference
+    has no `device` argument).
+
+The mesh route (`_rlc_mesh_round`, ecdsa.py:330-378, 414-421): without a
+device, a group of at least `_MESH_MIN_ROWS` live items a slot folds on
+every slot of the plan at once (parallel/sharding.sharded_rlc_kernel:
+each slot its own columns, with the whole batch's coefficients), one
+verdict a shard; a failing shard is bisected alone.
 """
 from __future__ import annotations
 
@@ -444,7 +451,6 @@ def verify_batch(curve_name: str,
     prep = prepare_batch(curve_name, items)
     dev = _device.resolve(device)
     from tpubft_torch.ops.dispatch import device_section
-    # no shard count: the port has no mesh tier (ROADMAP A.7)
     with device_section("ecdsa", batch=len(items)):
         ok, _ = verify_kernel(curve_name, *to_tensors(prep[:6], dev))
         out = ok.cpu().numpy()
@@ -463,6 +469,53 @@ def rlc_columns(prep: PreparedRlcBatch, idxs: Sequence[int]
     return (prep.u1[:, sel], prep.u2[:, sel], prep.qx[:, sel],
             prep.qy[:, sel], prep.xr[:, sel], prep.xrpn[:, sel],
             prep.wrap_ok[sel], prep.host_valid[sel], prep.a[:, sel])
+
+
+# the RLC aggregate rides the mesh only past this per-shard lane count
+# (reference :325-328)
+_MESH_MIN_ROWS = 32
+
+
+def _rlc_mesh_round(plan, curve_name: str, prep: PreparedRlcBatch,
+                    idxs: Sequence[int]) -> List[List[int]]:
+    """One sharded aggregate round (reference :330-378) -> the index
+    subsets, one a failing shard, that still need bisection; empty when
+    every shard's fold was zero. The columns are padded to pow2 rows a
+    slot with inactive lanes. A plan that eviction shrank to one slot
+    takes one aggregate launch on that slot's device."""
+    if plan.mesh is None:
+        ok = _rlc_launch(curve_name, prep, idxs, plan.devices[0].device)
+        return [] if ok else [list(idxs)]
+    from tpubft_torch.ops.dispatch import device_section
+    from tpubft_torch.parallel import sharding
+    d = plan.n
+    rows = sharding.shard_rows(len(idxs), d)
+    m = rows * d
+    sel = list(idxs) + [idxs[0]] * (m - len(idxs))
+    active = np.zeros(m, bool)
+    active[:len(idxs)] = prep.host_valid[list(idxs)]
+    cols = rlc_columns(prep, sel)
+    cols = cols[:7] + (active,) + cols[8:]
+    counts = COUNTS[curve_name]
+    counts["rlc_launches"] += d
+    counts["lanes"] += m
+    kern = sharding.mesh_manager().cached_kernel(
+        f"ecdsa_rlc.{curve_name}", plan,
+        lambda mesh: sharding.sharded_rlc_kernel(curve_name, mesh))
+    with device_section("ecdsa", batch=len(idxs), shards=d):
+        ok = kern(*cols)
+        if ok.shape[0] < d:
+            raise RuntimeError(
+                f"sharded rlc fold returned {ok.shape[0]} shard "
+                f"verdicts for a plan of {d}")
+    failing = []
+    for j in range(d):
+        if not ok[j]:
+            sub = [idxs[k] for k in range(j * rows,
+                                          min((j + 1) * rows, len(idxs)))]
+            if sub:
+                failing.append(sub)
+    return failing
 
 
 def _rlc_launch(curve_name: str, prep: PreparedRlcBatch,
@@ -514,5 +567,21 @@ def rlc_verify_batch(curve_name: str,
         descend(live[:mid])
         descend(live[mid:])
 
-    descend(list(range(len(items))))
+    live = [i for i in range(len(items)) if prep.host_valid[i]]
+    # Port divergence: the reference has no `device` argument; an
+    # explicit device pins the single-device route
+    if device is None and live:
+        from tpubft_torch.ops import dispatch
+        plan = dispatch.mesh_plan()
+        if plan.mesh is not None and len(live) >= _MESH_MIN_ROWS * plan.n:
+            failing = dispatch.mesh_launch(
+                "ecdsa",
+                lambda p: _rlc_mesh_round(p, curve_name, prep, live))
+            # bisection inside a failing shard, on the first healthy slot
+            first[0] = False
+            dev = dispatch.mesh_plan().devices[0].device
+            for sub in failing:
+                descend(sub)
+            return out
+    descend(live)
     return out

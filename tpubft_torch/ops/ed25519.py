@@ -356,12 +356,13 @@ def to_tensors(arrays, device) -> Tuple[torch.Tensor, ...]:
                  .to(device) for a in arrays)
 
 
-def _run_kernel(prep: PreparedBatch, n: int, m: int,
-                device: torch.device) -> np.ndarray:
+def _run_kernel(prep: PreparedBatch, n: int, m: int, launch,
+                shards: int = 1) -> np.ndarray:
+    """launch(arrays) over the batch padded to m lanes -> its verdicts,
+    read back inside the device section."""
     from tpubft_torch.ops.dispatch import device_section
-    with device_section("ed25519", batch=n):
-        dev = verify_kernel(*to_tensors(_pad_rows(prep, n, m), device))
-        out = dev.cpu().numpy()            # waits for the launch
+    with device_section("ed25519", batch=n, shards=shards):
+        out = launch(_pad_rows(prep, n, m))
         if out.shape[0] < n:
             # a garbage device result must classify as a device failure
             # (breaker), never silently truncate into false verdicts
@@ -371,16 +372,50 @@ def _run_kernel(prep: PreparedBatch, n: int, m: int,
         return out[:n] & prep.host_valid
 
 
+def _single_device_verify(prep: PreparedBatch, n: int,
+                          dev: torch.device) -> np.ndarray:
+    """One launch on `dev`. The CUDA kernel masks its own ragged edge;
+    the plain version runs at the reference's padded size class."""
+    m = n if dev.type == "cuda" else _pad_to_class(n)
+    return _run_kernel(
+        prep, n, m,
+        lambda arrays: verify_kernel(*to_tensors(arrays, dev)).cpu().numpy())
+
+
+def _mesh_verify(plan, prep: PreparedBatch, n: int) -> np.ndarray:
+    """One launch under a MeshPlan (reference ed25519.py:419-437): the
+    batch axis sharded over the plan's slots, pow2 rows a shard with a
+    floor of 8. A plan that eviction shrank to one slot takes the
+    single-device route on that slot's device."""
+    if plan.mesh is None:
+        return _single_device_verify(prep, n, plan.devices[0].device)
+    from tpubft_torch.parallel import sharding
+    rows = max(sharding.shard_rows(n, plan.n), 8)
+    kernel = sharding.mesh_manager().cached_kernel(
+        "ed25519", plan, sharding.sharded_verify_ed25519)
+    return _run_kernel(prep, n, rows * plan.n, lambda a: kernel(*a),
+                       shards=plan.n)
+
+
 def verify_batch(items: Sequence[Tuple[bytes, bytes, bytes]],
                  device: Optional[torch.device] = None) -> np.ndarray:
     """End-to-end batched verify: (msg, sig, pk) triples → bool array.
-    Runs on `device`, by default the card (device.default_device)."""
+    Runs on `device`; without one, on the mesh's slots when the plan has
+    more than one and the batch reaches the gate, else on the default
+    device (the card unless the CPU was asked for). Per-lane verdicts
+    are the same on every route."""
     if not items:
         return np.zeros(0, bool)
-    dev = _device.resolve(device)
     n = len(items)
     prep = prepare_batch(list(items))
-    # the CUDA kernel masks its own ragged edge; the plain version runs
-    # at the reference's padded size class
-    m = n if dev.type == "cuda" else _pad_to_class(n)
-    return _run_kernel(prep, n, m, dev)
+    # Port divergence: the reference has no `device` argument; an
+    # explicit device pins the single-device route
+    if device is None:
+        from tpubft_torch.ops import dispatch
+        plan = dispatch.mesh_plan()
+        # mesh gate (reference :456-464): >= 8 rows a shard before the
+        # fan-out pays; below it a sharded launch is mostly padding
+        if plan.mesh is not None and n >= 8 * plan.n:
+            return dispatch.mesh_launch(
+                "ed25519", lambda p: _mesh_verify(p, prep, n))
+    return _single_device_verify(prep, n, _device.resolve(device))

@@ -25,8 +25,11 @@ contract. No batch or block count is rounded up: that bounded the
 reference's compiled XLA shapes, and the digests are the same without it.
 
 Users: the sparse Merkle tree's level hashing (kvbc/sparse_merkle.py)
-and state-transfer window digests (statetransfer/digests.py). The
-reference's mesh tier (sharding a batch across chips) is not ported.
+and state-transfer window digests (statetransfer/digests.py). A batch of
+at least `_MESH_MIN_ROWS` rows a slot, called without a device, is
+sharded over the mesh's slots (`_launch_sharded`: each slot hashes its
+rows through `sha256_kernel`, the reference's mesh tier, :128-245); the
+digests are the same on every route.
 """
 from __future__ import annotations
 
@@ -295,17 +298,69 @@ def _hash(messages: Sequence[bytes], device: Optional[torch.device]
     return [raw[i:i + 32] for i in range(0, len(raw), 32)]
 
 
+# a digest batch rides the mesh only past this per-shard row count
+# (reference :128-132): below it the launch a slot costs more than the
+# split buys
+_MESH_MIN_ROWS = 32
+
+
+def _mesh_plan_for(n: int):
+    """The current MeshPlan when an n-row digest batch should shard,
+    else None (one slot, or a batch below the per-shard floor)."""
+    from tpubft_torch.ops import dispatch
+    plan = dispatch.mesh_plan()
+    if plan.mesh is None or n < _MESH_MIN_ROWS * plan.n:
+        return None
+    return plan
+
+
+def _launch_sharded(plan, messages: Sequence[bytes], name: str
+                    ) -> List[bytes]:
+    """One sharded launch under a MeshPlan (reference :143-157,
+    :228-245): the batch padded with its first message to pow2 rows a
+    slot. A plan that eviction shrank to one slot takes the
+    single-device route on that slot's device."""
+    if plan.mesh is None:
+        return _hash(messages, plan.devices[0].device)
+    from tpubft_torch.ops.dispatch import device_section
+    from tpubft_torch.parallel import sharding
+    n, shards = len(messages), plan.n
+    m = sharding.shard_rows(n, shards) * shards
+    kern = sharding.mesh_manager().cached_kernel(
+        name, plan, sharding.sharded_sha256_masked_kernel
+        if name == "sha256.masked" else sharding.sharded_sha256_kernel)
+    padded = list(messages) + [messages[0]] * (m - n)
+    with device_section("sha256", batch=m, shards=shards):
+        raw = kern(padded)
+    return [raw[i:i + 32] for i in range(0, 32 * n, 32)]
+
+
+def _route(messages: Sequence[bytes], device: Optional[torch.device],
+           mixed: bool) -> List[bytes]:
+    # Port divergence: the reference has no `device` argument; an
+    # explicit device pins the single-device route
+    if device is None:
+        plan = _mesh_plan_for(len(messages))
+        if plan is not None:
+            from tpubft_torch.ops import dispatch
+            name = "sha256.masked" if mixed and len(
+                {blocks_needed(len(m)) for m in messages}) > 1 else "sha256"
+            return dispatch.mesh_launch(
+                "sha256", lambda p: _launch_sharded(p, messages, name))
+    return _hash(messages, device)
+
+
 def sha256_batch(messages: Sequence[bytes],
                  device: Optional[torch.device] = None) -> List[bytes]:
     """Hash a batch of messages that all need the same number of blocks
     (the reference's contract; ValueError otherwise) in one device call
-    on `device` (default: the card)."""
+    on `device` (default: the mesh, else the card)."""
     if not messages:
         return []
     nbs = {blocks_needed(len(m)) for m in messages}
     if len(nbs) != 1:
         raise ValueError("mixed block counts in one batch")
-    return _hash(messages, device)
+    return _route(messages, device, mixed=False)
 
 
 def sha256_batch_mixed(messages: Sequence[bytes],
@@ -314,4 +369,4 @@ def sha256_batch_mixed(messages: Sequence[bytes],
     """Hash a batch of messages of any sizes in one device call."""
     if not messages:
         return []
-    return _hash(messages, device)
+    return _route(messages, device, mixed=True)

@@ -272,11 +272,7 @@ def crypto_shard_policy() -> Policy:
     single-chip-routed interval says nothing about the mesh. An evicted
     chip never reaches this policy at all — any non-CLOSED breaker
     trips the controller's degraded rule, which resets the knob to its
-    default (full width) until the plane heals.
-
-    The port attaches it to no knob: its `crypto_shard_count` knob needs
-    more than one chip and the mesh tier (wiring.py; ROADMAP A.7), and
-    no port seam emits `ed25519.shard` yet."""
+    default (full width) until the plane heals."""
 
     def policy(cur: Telemetry, prev: Optional[Telemetry],
                knob: Knob) -> int:

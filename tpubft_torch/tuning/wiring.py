@@ -36,9 +36,10 @@ file (`ReplicaConfig.autotune_seed_file`, written back by the controller
 on a clean shutdown) re-baselines measured knobs before the controller
 starts.
 
-Port divergences, each marked where it sits: the mesh knob
-`crypto_shard_count` is not registered (one device, ROADMAP A.7), and
-the offload counters are read from the port's own pool.
+The mesh knob `crypto_shard_count` is registered where the slot
+inventory has more than one slot (ops/dispatch.crypto_mesh). Port
+divergence, marked where it sits: the offload counters are read from the
+port's own pool.
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ from tpubft_torch.tuning.policies import (admission_watermark_policy,
                                           batch_amortize_policy,
                                           breaker_readmission_policy,
                                           client_table_policy,
+                                          crypto_shard_policy,
                                           device_min_batch_policy,
                                           durability_amortize_policy,
                                           ecdsa_crossover_policy,
@@ -184,12 +186,18 @@ def build_replica_tuning(replica, cfg) -> TuningController:
       "ecdsa kernel per-item cost vs ecdsa_host_us/items", "sigs")
     controller.add_policy("ecdsa_crossover_b", ecdsa_crossover_policy())
 
-    # Port divergence (reference wiring.py:181-193): the multi-chip mesh
-    # fan-out knob `crypto_shard_count` (crypto_shard_policy over the
-    # `ed25519.shard` profile rows) is registered only when the crypto
-    # mesh spans more than one chip. The port has one device and no
-    # mesh tier (ROADMAP A.7): this is the reference's n_chips == 1
-    # branch, so the knob is never registered.
+    # --- mesh fan-out: cap the crypto plane's shard count from the
+    # measured sharded-launch amortisation. Process-wide like the device
+    # and the crossover; the default is every slot, so the degraded
+    # rule's reset (any breaker not CLOSED, an evicted slot's
+    # `device.chip<N>` among them) restores the full width ---
+    from tpubft_torch.ops import dispatch as dispatch_mod
+    n_chips = dispatch_mod.crypto_mesh().device_count()
+    if n_chips > 1:
+        K("crypto_shard_count", n_chips, 1, n_chips,
+          dispatch_mod.crypto_mesh().set_shard_count,
+          "ed25519.shard per-item cost vs full-batch trend", "chips")
+        controller.add_policy("crypto_shard_count", crypto_shard_policy())
 
     # --- device-launch floor: the smallest batch
     # worth a device ride follows the ed25519 kernel's warm per-item
