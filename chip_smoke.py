@@ -9,7 +9,7 @@ source, all started together) and runs these phases in order, one JSON
 line each; any failure exits non-zero:
 
   device   the card's name, power limit and SM clock, the builds (the
-           native BLS engine with g++ among them), each BLS kernel's
+           native BLS engine and netio with g++ among them), each BLS kernel's
            registers, stack and spill from ptxas (`bls_msm_ptxas`), and
            from
            the SHA-256 kernel's SASS (cuobjdump) the opcodes of its longest
@@ -98,6 +98,30 @@ line each; any failure exits non-zero:
            fallback allowed, no device digest call failed, a full
            64-block window was digested (kept for the kernels line), and
            replica 3's head block digest equals replica 0's;
+  process_cluster
+           config 1 as BASELINE.md runs it, one OS process a replica
+           over UDP: this process builds every library once (netio with
+           g++ among them; the build seconds printed), then
+           testing.BftTestNetwork starts four `python -m
+           tpubft_torch.apps.skvbc_replica` processes on the card (the
+           SKVBC ledger in memory, ReplicaConfig's defaults but
+           device_min_verify_batch 4, so that the primary's PrePrepare
+           batches of about 5 requests reach the card; each process's
+           start seconds printed). 32 closed-loop SkvbcClients
+           write kvbcbench blocks until 1,000 commit; 120 keys read
+           back; the four last_executed equal. Replica 3 is SIGKILLed,
+           300 more writes commit and the load goes on until the stable
+           checkpoint is past an empty replica's work window; replica 3
+           restarts empty under the load until it has fetched 256 blocks
+           by state transfer, then its last_executed must reach the
+           others'. From every process (its metrics and diagnostics
+           servers): signatures dispatched to the device, no degraded
+           verify, health healthy with every breaker closed, verify
+           section calls, SHA-256 calls in the restarted one, no netio
+           fallback, the wrappers' launches and the CUDA memory it
+           holds. Printed: requests/s and commit latency p50/p90/p99
+           beside the ledger_replica phase's, the catch-up seconds and
+           blocks fetched;
   bls_plane
            BLS certificates on the card: config 2's keys (n=7 f=2 c=0,
            threshold-bls, threshold 5) and 64 slots through
@@ -188,7 +212,8 @@ line each; any failure exits non-zero:
            its cooldown; (d) config 1's counter cluster (the replica
            phase) on the 4 slots until 1,000 writes commit, with
            crypto_shard_count registered and mesh_sharded_verifies on
-           every replica; (e) graft_entry.dryrun_multichip(4);
+           every replica; (e) graft_entry.dryrun_multichip(4); and the
+           liveness probe's device time, read-back time and bound;
   ledger   config 1's categorized KVBC ledger at the kvbcbench block shape
            (800 blocks of 8 versioned keys and one Merkle-proven key) on a
            MemoryDB with use_device_hashing=True, against the same ledger
@@ -217,10 +242,11 @@ line each; any failure exits non-zero:
            messages (per call and by a CUDA graph) beside the host pack,
            hashlib over the same messages and the plain version at
            B=1024;
-  kernels  every kernel with its launches on its path (the plane and the
-           two clusters, the ladder, the ledger replica's catch-up and the
-           state-transfer digests; the verify and SHA-256 rows split them
-           by path), its match against the plain
+  kernels  every kernel with its launches on its path (the plane, the
+           two in-process clusters and the replica processes, the ladder,
+           the ledger replica's and the restarted replica process's
+           catch-ups and the state-transfer digests; the verify and
+           SHA-256 rows split them by path), its match against the plain
            version, its device time (`ms`, a CUDA graph) and host enqueue
            time (`host_ms`), its bound and the plain version's time;
            SHA-256 timed on a 64-block window that the ledger replica's
@@ -369,12 +395,11 @@ def phase_device(torch) -> dict:
 
 def build_all() -> dict:
     """Build every kernel library at once, one nvcc per source in its own
-    thread; -> {library: seconds}. A failed build raises."""
-    import threading
-
+    thread, and the host libraries with g++; -> {library: seconds}. A
+    failed build raises."""
     from tpubft_torch.crypto import bls_native
-    from tpubft_torch.ops import (bls12_381_cuda, bringup_cuda, ecdsa_cuda,
-                                  ed25519_cuda, sha256_cuda)
+    from tpubft_torch.ops import (_build, bls12_381_cuda, bringup_cuda,
+                                  ecdsa_cuda, ed25519_cuda, sha256_cuda)
 
     def native():
         # the host BLS engine, g++ into ops/_build/; the pure-Python
@@ -382,31 +407,14 @@ def build_all() -> dict:
         if not bls_native.available():
             raise RuntimeError("the native BLS12-381 engine did not load: "
                                f"{bls_native.load_error}")
-    libs = {"ed25519_verify": ed25519_cuda.library,
-            "sha256": sha256_cuda.library, "bringup": bringup_cuda.library,
-            "fe_inv": bringup_cuda.fe_inv_library,
-            "bls12_381_msm": bls12_381_cuda.library,
-            "ecdsa": ecdsa_cuda.library,
-            "bls12381_native": native}
-    seconds, errors = {}, []
-
-    def build(name, fn):
-        t0 = time.monotonic()
-        try:
-            fn()
-        except Exception as exc:  # noqa: BLE001 — re-raised below
-            errors.append(exc)
-        seconds[name] = time.monotonic() - t0
-
-    threads = [threading.Thread(target=build, args=item)
-               for item in libs.items()]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if errors:
-        raise errors[0]
-    return seconds
+    return _build.build_parallel({
+        "ed25519_verify": ed25519_cuda.library,
+        "sha256": sha256_cuda.library, "bringup": bringup_cuda.library,
+        "fe_inv": bringup_cuda.fe_inv_library,
+        "bls12_381_msm": bls12_381_cuda.library,
+        "ecdsa": ecdsa_cuda.library, "bls12381_native": native,
+        # the UDP transport's sendmmsg/recvmmsg library, g++
+        "netio": lambda: _build.load_host("netio")})
 
 
 def work_bound_ms(ops: int, nbytes: int, sm_clock_mhz: float) -> dict:
@@ -1486,6 +1494,273 @@ def phase_ledger_replica(torch, dev, clients: int = 100,
     if problems:
         raise AssertionError("; ".join(problems))
     out["window_raws"] = list(full_window)
+    return out
+
+
+class _Every:
+    """`pred` re-read at most every `period_s` (it polls the replica
+    processes); the last answer is returned in between."""
+
+    def __init__(self, pred, period_s: float = 0.25):
+        self.pred = pred
+        self.period_s = period_s
+        self.at = 0.0
+        self.last = False
+
+    def __call__(self, _n=None) -> bool:
+        now = time.monotonic()
+        if now - self.at >= self.period_s:
+            self.at = now
+            self.last = bool(self.pred())
+        return self.last
+
+
+def _equal_last_executed(net, replicas, timeout: float) -> list:
+    """Wait until the replicas' last_executed agree; -> the values. On
+    the deadline raise with the values last read."""
+    seen = []
+
+    def same():
+        seen[:] = [net.last_executed(r) for r in replicas]
+        return None not in seen and len(set(seen)) == 1
+    try:
+        net.wait_for(same, timeout=timeout)
+    except TimeoutError:
+        raise AssertionError(f"last_executed never agreed: {seen}")
+    return list(seen)
+
+
+def _replica_report(net, r: int) -> dict:
+    """Replica r's metrics and its `kernels`, `device` and `health`
+    statuses, read over its UDP metrics and diagnostics servers."""
+    snap = net.metrics(r).snapshot(timeout=5.0) or {}
+    comps = snap.get("components", {})
+    sig = comps.get("signature_manager", {}).get("counters", {})
+    st = comps.get("state_transfer", {}).get("counters", {})
+
+    def status(name):
+        text = net.status(r, name)
+        return json.loads(text) if text else {}
+    kernels = status("kernels")
+    devinfo = status("device")
+    health = status("health")
+    return {
+        "last_executed": comps.get("replica", {}).get("gauges", {}).get(
+            "last_executed_seq"),
+        "sigs_device_dispatched": sig.get("sigs_device_dispatched"),
+        "degraded_verifies": sig.get("degraded_verifies"),
+        "scalar_fallbacks": sig.get("scalar_fallbacks"),
+        "netio_fallbacks": comps.get("udp", {}).get("counters", {}).get(
+            "netio_fallbacks"),
+        "blocks_fetched": st.get("blocks_fetched"),
+        "device_digest_batches": st.get("device_digest_batches"),
+        "section_calls": {k: v["calls"] for k, v in kernels.items()},
+        "section_ms": {k: v["total_ms"] for k, v in kernels.items()},
+        "launches": {k: v for k, v in devinfo.get("launches", {}).items()
+                     if v},
+        "device": devinfo.get("device"),
+        "memory_reserved": devinfo.get("memory_reserved"),
+        "health": health.get("verdict"),
+        "open_breakers": sorted(k for k, b in health.get(
+            "breakers", {}).items() if b.get("state") != "closed")}
+
+
+def phase_process_cluster(torch, dev, ledger_replica: dict,
+                          clients: int = 32, target: int = 1000,
+                          reads: int = 120, behind: int = 300,
+                          min_fetched: int = 256,
+                          device_min_verify_batch: int = 4,
+                          budget_s: float = 150.0) -> dict:
+    """Config 1 as BASELINE.md runs it ("simpleTest 4-replica (f=1)
+    UDP"): four replica OS processes (python -m
+    tpubft_torch.apps.skvbc_replica, the SKVBC ledger in memory, every
+    setting at ReplicaConfig's default on the card but
+    `device_min_verify_batch`) started by
+    testing.BftTestNetwork over UDP on localhost, after this process
+    built every library once (the build seconds printed, netio among
+    them). `clients` closed-loop SkvbcClients in this process write
+    kvbcbench blocks until `target` commit; `reads` acknowledged keys
+    are read back; all four last_executed must agree. Replica 3 is then
+    SIGKILLed, `behind` more writes commit on the other three and the
+    load goes on until their stable checkpoint is past the work window of
+    a replica with empty state; replica 3 restarts empty while the load
+    goes on (the reference's harness catches a restarted replica up
+    only under load) until it has fetched `min_fetched` blocks by state
+    transfer, then the load stops and its last_executed must reach the
+    others'. Read from every process over its metrics and diagnostics
+    servers: sigs_device_dispatched > 0, degraded_verifies 0, health
+    healthy with every breaker closed, the verify section's calls > 0,
+    SHA-256's > 0 in the restarted replica, no netio fallback (nor in
+    this process), each wrapper's launches and the CUDA memory each
+    process holds. Printed beside the in-process ledger_replica phase's
+    rate and latency from the same run.
+
+    `device_min_verify_batch` is 4, not ReplicaConfig's 32 (the
+    reference's TPU crossover): with 32 clients a PrePrepare holds about
+    5 requests, and at 32 the primary verified every signature on the
+    host (PERF.md §7: on an H100, 0 signatures dispatched on replica 0
+    and 104.6 requests/s; at 4, 280.4)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from tpubft_torch import testing
+    from tpubft_torch.comm import udp
+    from tpubft_torch.testing.network import BftTestNetwork, build_libraries
+
+    t_phase = time.monotonic()
+    log_dir = tempfile.mkdtemp(prefix="chip-smoke-procs-")
+    net = BftTestNetwork(f=1, num_clients=clients, seed="chip-smoke-procs",
+                         device="cuda", log_dir=log_dir,
+                         device_min_verify_batch=device_min_verify_batch)
+    problems = []
+    out = {"phase": "process_cluster", "n": net.n, "f": 1,
+           "clients": clients, "transport": net.transport,
+           "crypto_backend": net.crypto_backend,
+           "checkpoint_window": net.checkpoint_window,
+           "work_window": net.work_window,
+           "device_min_verify_batch": device_min_verify_batch}
+    fallbacks0 = udp.FALLBACKS.value
+    try:
+        t0 = time.monotonic()
+        out["build_s"] = build_libraries("cuda")
+        out["build_wall_s"] = time.monotonic() - t0
+        if udp._load_netio() is None:
+            raise AssertionError(f"netio did not load: {udp.load_error}")
+        t0 = time.monotonic()
+        net.start_all(timeout=120)
+        out["start_wall_s"] = time.monotonic() - t0
+        out["start_s"] = dict(net.start_s)
+        emit({"phase": "process_cluster", "step": "up",
+              **{k: out[k] for k in ("build_s", "build_wall_s",
+                                     "start_wall_s", "start_s")}})
+        kvs = [net.skvbc_client(i) for i in range(clients)]
+        writes = _KvbcbenchWrites(kvs, testing.kvbcbench_rows(64),
+                                  timeout_ms=30000)
+        loop = _ClosedLoop(clients, writes)
+
+        # ---- load ----
+        load = loop.run(lambda n: n >= target, budget_s=budget_s / 3)
+        out["load"] = load
+        emit({"phase": "process_cluster", "step": "load", **load})
+        if loop.errors or load["committed"] < target:
+            raise AssertionError(f"load: {load['committed']} of {target} "
+                                 f"writes committed, {loop.errors[:3]}")
+
+        # ---- read-back ----
+        rng = np.random.default_rng(9)
+        keys = sorted(writes.acked)
+        sample = [keys[i] for i in rng.choice(len(keys), size=min(
+            reads, len(keys)), replace=False)]
+        got = {}
+        for i in range(0, len(sample), 10):
+            got.update(kvs[i // 10 % clients].read(sample[i:i + 10],
+                                                    timeout_ms=30000))
+        wrong = [k for k in sample if got.get(k) != writes.acked[k]]
+        out["read_back"] = {"keys": len(sample), "wrong": len(wrong)}
+        if len(sample) < reads or wrong:
+            raise AssertionError(f"read-back: {len(wrong)} of "
+                                 f"{len(sample)} keys wrong")
+        le = _equal_last_executed(net, range(net.n), timeout=30)
+        out["last_executed_after_load"] = le
+        # replica 3's counts die with it: read them first
+        before_kill = _replica_report(net, 3)
+
+        # ---- replica 3 down ----
+        net.kill_replica(3)
+        up = (0, 1, 2)
+
+        def stable_past():
+            st = [net.metrics(r).get("replica", "gauges",
+                                     "last_stable_seq") for r in up]
+            return None not in st and min(st) >= net.work_window
+        past = _Every(stable_past)
+        down = loop.run(lambda n: n >= behind and past(),
+                        budget_s=budget_s / 3)
+        out["behind"] = down
+        emit({"phase": "process_cluster", "step": "behind", **down})
+        if loop.errors or down["timed_out"]:
+            raise AssertionError(f"second load: {down['committed']} "
+                                 f"writes, {loop.errors[:3]}")
+
+        # ---- restart with empty state, catch up under load ----
+        t_restart = time.monotonic()
+        net.start_replica(3)
+
+        def fetched():
+            m = net.metrics(3)
+            got = m.get("state_transfer", "counters", "blocks_fetched",
+                        timeout=0.3)
+            le3 = m.get("replica", "gauges", "last_executed_seq",
+                        timeout=0.3)
+            return (got or 0) >= min_fetched and (le3 or 0) >= net.work_window
+        during = loop.run(_Every(fetched), budget_s=budget_s / 3)
+        net.wait_for_replicas_up(timeout=5, replicas=[3])
+        le = _equal_last_executed(net, range(net.n), timeout=60)
+        catch_up_s = time.monotonic() - t_restart
+        reports = {r: _replica_report(net, r) for r in range(net.n)}
+        out["catch_up"] = {"load_during": during, "catch_up_s": catch_up_s,
+                           "restart_start_s": net.start_s.get(3),
+                           "blocks_fetched": reports[3]["blocks_fetched"],
+                           "device_digest_windows":
+                               reports[3]["device_digest_batches"],
+                           "last_executed": le}
+        emit({"phase": "process_cluster", "step": "catch_up",
+              **out["catch_up"]})
+        if loop.errors or during["timed_out"]:
+            problems.append(f"catch-up: {loop.errors[:3]}, replica 3 "
+                            f"{reports[3]}")
+        out["replica3_before_kill"] = before_kill
+        out["replicas"] = reports
+
+        # ---- what each process ran ----
+        for r, rep in reports.items():
+            if not rep["sigs_device_dispatched"]:
+                problems.append(f"replica {r}: no signature reached the "
+                                "device")
+            if rep["degraded_verifies"]:
+                problems.append(f"replica {r}: {rep['degraded_verifies']} "
+                                "verifies degraded")
+            if rep["health"] != "healthy" or rep["open_breakers"]:
+                problems.append(f"replica {r}: health {rep['health']}, "
+                                f"open breakers {rep['open_breakers']}")
+            if not rep["section_calls"].get("ed25519"):
+                problems.append(f"replica {r}: no verify device section")
+            if rep["netio_fallbacks"] != 0:
+                problems.append(f"replica {r}: {rep['netio_fallbacks']} "
+                                "netio fallbacks")
+        if not reports[3]["section_calls"].get("sha256"):
+            problems.append("the restarted replica ran no SHA-256 section")
+        if (reports[3]["blocks_fetched"] or 0) < min_fetched:
+            problems.append(f"replica 3 fetched {reports[3]['blocks_fetched']}"
+                            f" blocks, fewer than {min_fetched}")
+        procs = [before_kill] + list(reports.values())
+        out["verify_launches"] = sum(p["launches"].get("ed25519_verify", 0)
+                                     for p in procs)
+        out["sha256_launches"] = sum(p["launches"].get("sha256", 0)
+                                     for p in procs)
+        if out["verify_launches"] < 1 or out["sha256_launches"] < 1:
+            problems.append(f"launches: verify {out['verify_launches']}, "
+                            f"sha256 {out['sha256_launches']}")
+    finally:
+        net.stop_all()
+        shutil.rmtree(log_dir, ignore_errors=True)
+    out["netio_fallbacks_parent"] = udp.FALLBACKS.value - fallbacks0
+    if out["netio_fallbacks_parent"]:
+        problems.append("this process's UDP transports fell back to the "
+                        "scalar path")
+    inproc = ledger_replica["load"]
+    out["beside_in_process"] = {
+        "process_requests_per_s": out["load"]["requests_per_s"],
+        "process_commit_latency_ms": out["load"]["commit_latency_ms"],
+        "in_process_requests_per_s": inproc["requests_per_s"],
+        "in_process_commit_latency_ms": inproc["commit_latency_ms"],
+        "in_process_clients": ledger_replica["config"]["clients"]}
+    out["wall_s"] = time.monotonic() - t_phase
+    emit(out)
+    if problems:
+        raise AssertionError("; ".join(problems))
     return out
 
 
@@ -2900,6 +3175,21 @@ def phase_mesh(torch, dev, sm_clock_mhz: float) -> dict:
                       "equal_to_single_device": routed == pinned,
                       "launches_equal": routed_l == pinned_l}
     emit({"phase": "mesh", "step": "default", **out["default"]})
+    # the liveness probe (sharding._probe_fn, a torch expression on 16
+    # int32, no kernel of the port): its device time by graph, a probe
+    # with its read-back on the host's clock (median of 20), and the
+    # bound of its work: 64 bytes in and an 8-byte sum out, 16
+    # multiplies, 16 additions and 15 for the sum
+    x = torch.arange(16, dtype=torch.int32, device=dev)
+    roundtrip = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        int(sharding._probe_fn(x))
+        roundtrip.append((time.perf_counter() - t0) * 1e3)
+    out["probe"] = {"ms": graph_ms(lambda: sharding._probe_fn(x), 20),
+                    "roundtrip_ms": sorted(roundtrip)[10],
+                    **work_bound_ms(47, 72, sm_clock_mhz)}
+    emit({"phase": "mesh", "step": "probe", **out["probe"]})
     if cards == 1 and (plan.n != 1 or plan.mesh is not None or chips):
         problems.append(f"default inventory: {out['default']}")
     if cards > 1 and plan.n != cards:
@@ -3412,9 +3702,9 @@ def sha256_rate_row(torch, dev, b: int, sm_clock_mhz: float) -> dict:
     return row
 
 
-def phase_kernels(torch, dev, plane, replica, ledger_replica, kernel,
-                  ladder, ledger, digest, bls_plane, bls_ledger,
-                  ecdsa_plane, ecdsa_ledger, offload, mesh,
+def phase_kernels(torch, dev, plane, replica, ledger_replica,
+                  process_cluster, kernel, ladder, ledger, digest, bls_plane,
+                  bls_ledger, ecdsa_plane, ecdsa_ledger, offload, mesh,
                   sm_clock_mhz) -> dict:
     """Every kernel, timed at its path's shape: the verify kernel at one
     PrePrepare drain of 100 signatures, the ladder kernels at the ladder's
@@ -3437,13 +3727,16 @@ def phase_kernels(torch, dev, plane, replica, ledger_replica, kernel,
     row = {"name": "ed25519_verify", "route": "cuda",
            "source": "tpubft_torch/ops/csrc/ed25519_verify.cu",
            "replaces": "tpubft/ops/ed25519_pallas.py:421",
-           # the main path's runs: the plane and the two clusters
+           # the main path's runs: the plane, the two in-process
+           # clusters and the replica processes
            "launches": plane["launches"]["ed25519_verify"]
-           + replica["verify_launches"] + ledger_replica["verify_launches"],
+           + replica["verify_launches"] + ledger_replica["verify_launches"]
+           + process_cluster["verify_launches"],
            "launches_by_path": {
                "plane": plane["launches"]["ed25519_verify"],
                "replica": replica["verify_launches"],
                "ledger_replica": ledger_replica["verify_launches"],
+               "process_cluster": process_cluster["verify_launches"],
                "ladder": next(r["launches"] for r in ladder["rungs"]
                               if r["kernel"] == "ed25519_verify")},
            "replica_signatures_per_launch":
@@ -3481,7 +3774,8 @@ def phase_kernels(torch, dev, plane, replica, ledger_replica, kernel,
                 "lanes", "lanes_per_element", "ms", "host_ms", "bound_ms",
                 "share_of_bound", "mismatches_vs_int",
                 "mismatches_vs_plain")}
-    rows.append(sha256_kernel_row(torch, dev, ledger_replica, ledger, digest,
+    rows.append(sha256_kernel_row(torch, dev, ledger_replica,
+                                  process_cluster, ledger, digest,
                                   sm_clock_mhz))
     rows += bls_kernel_rows(torch, dev, bls_plane, bls_ledger, offload,
                             sm_clock_mhz)
@@ -3518,16 +3812,16 @@ LADDER_REPLACES = {
     "fe_table_gather": "tools/pallas_bringup.py:175"}
 
 
-def sha256_kernel_row(torch, dev, ledger_replica, ledger, digest,
-                      sm_clock_mhz) -> dict:
+def sha256_kernel_row(torch, dev, ledger_replica, process_cluster, ledger,
+                      digest, sm_clock_mhz) -> dict:
     """The SHA-256 kernel at the shape the main path launched it: one
     full window (64 raw blocks) that the ledger replica's catch-up
     digested, timed and held against its plain version there; also
     against the plain version on the digest phase's first window, its
     mixed window and a 1024-node Merkle level. Launches are the ledger
-    replica's catch-up windows and the digest phase's (the
-    migrate-chunk ledger launched none), the stress ledger's beside
-    them."""
+    replica's catch-up windows, the restarted replica process's and the
+    digest phase's (the migrate-chunk ledger launched none), the stress
+    ledger's beside them."""
     import hashlib
 
     from tpubft_torch.ops import sha256 as sha
@@ -3556,10 +3850,12 @@ def sha256_kernel_row(torch, dev, ledger_replica, ledger, digest,
             "source": "tpubft_torch/ops/csrc/sha256.cu",
             "replaces": "tpubft/ops/sha256.py:82 (and :178)",
             "launches": ledger_replica["sha256_launches"]
-            + digest["launches"]
+            + process_cluster["sha256_launches"] + digest["launches"]
             + ledger["migrate_chunks"]["sha256_launches"],
             "launches_by_path": {
                 "ledger_replica_catch_up": ledger_replica["sha256_launches"],
+                "process_cluster_catch_up":
+                    process_cluster["sha256_launches"],
                 "digest": digest["launches"],
                 "migrate_chunks": ledger["migrate_chunks"]["sha256_launches"]},
             "stress_launches": ledger["stress"]["sha256_launches"],
@@ -3727,6 +4023,7 @@ def main() -> int:
     plane = phase_plane(torch, dev)
     replica = phase_replica(torch, dev)
     ledger_replica = phase_ledger_replica(torch, dev)
+    process_cluster = phase_process_cluster(torch, dev, ledger_replica)
     bls_plane = phase_bls_plane(torch, dev)
     bls_ledger = phase_bls_ledger_replica(torch, dev)
     ecdsa_plane = phase_ecdsa_plane(torch, dev)
@@ -3736,9 +4033,10 @@ def main() -> int:
     ledger = phase_ledger(torch, dev)
     digest = phase_digest(torch, dev, ledger.pop("raws"))
     phase_rate(torch, dev, clock, info["nvidia_smi"])
-    phase_kernels(torch, dev, plane, replica, ledger_replica, kernel, ladder,
-                  ledger, digest, bls_plane, bls_ledger, ecdsa_plane,
-                  ecdsa_ledger, offload, mesh, clock)
+    phase_kernels(torch, dev, plane, replica, ledger_replica,
+                  process_cluster, kernel, ladder, ledger, digest, bls_plane,
+                  bls_ledger, ecdsa_plane, ecdsa_ledger, offload, mesh,
+                  clock)
     emit({"phase": "done", "wall_s": time.monotonic() - t_start})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

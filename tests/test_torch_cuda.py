@@ -688,3 +688,67 @@ def test_slot_streams_on_one_card_match_the_one_slot_route(card):
     assert delta["ed25519_verify"] == 4 and delta["sha256"] == 4
     assert delta["bls_msm"] == 4 and delta["bls_msm_combine"] == 1
     assert delta["ecdsa_rlc"] >= 4
+
+
+def test_process_cluster_on_the_card(card):
+    """Four replica OS processes (apps/skvbc_replica through
+    testing.BftTestNetwork) on the card over UDP: writes commit, replica
+    3 is killed and restarted with empty state and catches up by state
+    transfer under load; every process launched the verify kernel
+    (device_min_verify_batch 1 sends every batch there), the restarted
+    one the SHA-256 kernel, and none degraded."""
+    import json
+    import threading
+
+    from tpubft_torch.testing.network import BftTestNetwork
+    net = BftTestNetwork(f=1, num_clients=4, seed="card-procs",
+                         device="cuda", checkpoint_window=5,
+                         work_window=10, device_min_verify_batch=1)
+
+    def load(tag, per_client=4):
+        errors = []
+
+        def work(i):
+            try:
+                kv = net.skvbc_client(i)
+                for j in range(per_client):
+                    assert kv.write([(b"%s-%d-%d" % (tag, i, j), b"v")],
+                                    timeout_ms=30000).success
+            except Exception as exc:  # noqa: BLE001 — asserted below
+                errors.append(exc)
+        ts = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        assert not errors, errors
+
+    def status(r, name):
+        return json.loads(net.status(r, name))
+    try:
+        net.start_all(timeout=180)
+        load(b"a")
+        before = status(3, "device")["launches"]
+        assert before["ed25519_verify"] > 0
+        net.kill_replica(3)
+        load(b"b", per_client=8)
+        net.start_replica(3)
+        deadline = time.monotonic() + 120
+        rounds = 0
+        while not (net.metrics(3).get("state_transfer", "counters",
+                                      "blocks_fetched") or 0):
+            assert time.monotonic() < deadline
+            load(b"c%d" % rounds, per_client=1)
+            rounds += 1
+        net.wait_for(lambda: len({net.last_executed(r)
+                                  for r in range(4)}) == 1, timeout=60)
+        for r in range(4):
+            dev = status(r, "device")
+            assert dev["device"].startswith("cuda")
+            assert dev["launches"]["ed25519_verify"] > 0, (r, dev)
+            sig = net.metrics(r).get("signature_manager", "counters",
+                                     "degraded_verifies")
+            assert sig == 0
+        assert status(3, "device")["launches"]["sha256"] > 0
+    finally:
+        net.stop_all()

@@ -142,3 +142,20 @@ def test_ctypes_loads_stay_inside_the_port():
     if bls_native.available():
         assert os.path.abspath(bls_native._lib._name).startswith(
             os.path.join(port, "ops", "_build")), bls_native._lib._name
+
+
+def test_udp_transport_loads_the_ports_own_netio():
+    """The UDP transport's sendmmsg/recvmmsg library is built from the
+    port's copy of the source, tpubft_torch/native/netio.cpp, into the
+    port's ops/_build/ (never the reference's native library)."""
+    from tpubft_torch.comm import udp
+    from tpubft_torch.ops import _build
+    src = os.path.join(ROOT, "tpubft_torch", "native", "netio.cpp")
+    assert src in _all_port_files()
+    assert os.path.abspath(os.path.join(_build.NATIVE, "netio.cpp")) == src
+    if shutil.which("g++") is None:
+        pytest.skip("no g++: the transport runs its scalar path")
+    lib = udp._load_netio()
+    assert lib is not None, udp.load_error
+    assert os.path.abspath(lib._name).startswith(
+        os.path.join(ROOT, "tpubft_torch", "ops", "_build") + os.sep)

@@ -19,7 +19,8 @@ import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, Sequence
+import time
+from typing import Callable, Dict, List, Sequence
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 NATIVE = os.path.join(os.path.dirname(os.path.dirname(
@@ -158,3 +159,31 @@ def load_host(name: str) -> ctypes.CDLL:
         _compile(name, so, [gxx, *GXX_FLAGS], [os.path.join(NATIVE, src)])
     with _lock:
         return _loaded.setdefault(name, ctypes.CDLL(so))
+
+
+def build_parallel(builders: Dict[str, Callable[[], object]]
+                   ) -> Dict[str, float]:
+    """Run every builder at once, one thread each (nvcc and g++ run
+    outside the lock, so the libraries build in parallel); -> {name:
+    seconds}. The first error raised by a builder is raised here once
+    all have ended."""
+    seconds: Dict[str, float] = {}
+    errors: List[BaseException] = []
+
+    def build(name: str, fn) -> None:
+        t0 = time.monotonic()
+        try:
+            fn()
+        except Exception as exc:  # noqa: BLE001 — re-raised below
+            errors.append(exc)
+        seconds[name] = time.monotonic() - t0
+
+    threads = [threading.Thread(target=build, args=item)
+               for item in builders.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return seconds

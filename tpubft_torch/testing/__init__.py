@@ -18,8 +18,10 @@ crafts it the same way).
 (benchmarks/bench_kvbc.py), 8 versioned keys and one Merkle-proven key
 per block.
 
-The package also holds the in-process harnesses (port of
-tpubft/testing/): `InProcessCluster` is exported lazily (PEP 562), since
+The package also holds the harnesses (port of tpubft/testing/):
+`InProcessCluster` runs a cluster in this process, and `BftTestNetwork`
+(with its `MetricsClient`) one OS process a replica over UDP or TCP.
+They are exported lazily (PEP 562), since
 `tpubft_torch.testing.slowdown` and `.crashpoints` are imported by the
 consensus engine at module scope and an eager cluster import here would
 close a circular import back into tpubft_torch.consensus.replica.
@@ -270,4 +272,7 @@ def __getattr__(name):
     if name == "InProcessCluster":
         from tpubft_torch.testing.cluster import InProcessCluster
         return InProcessCluster
+    if name in ("BftTestNetwork", "MetricsClient"):
+        from tpubft_torch.testing import network
+        return getattr(network, name)
     raise AttributeError(name)

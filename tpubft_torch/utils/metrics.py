@@ -2,12 +2,15 @@
 
 Port of tpubft/utils/metrics.py (concordMetrics,
 util/include/Metrics.hpp): named Components own counters, gauges, and
-statuses; an Aggregator snapshots all components to JSON. The UDP
-metrics server and the Prometheus endpoint are ROADMAP A.9.
+statuses; an Aggregator snapshots all components to JSON. A
+lightweight UDP metrics server (reference util/include/MetricsServer.hpp:46)
+serves snapshots to test harnesses (testing/network.MetricsClient polls
+it). The Prometheus endpoint is ROADMAP A.9.5.
 """
 from __future__ import annotations
 
 import json
+import socket
 import threading
 import time
 from collections import deque
@@ -137,3 +140,46 @@ class Aggregator:
 
     def to_json(self) -> str:
         return json.dumps({"ts": time.time(), "components": self.snapshot()})
+
+
+class UdpMetricsServer:
+    """Serves aggregator JSON snapshots over UDP — any datagram gets a
+    reply ("metrics" by the harness's poll, "ping" by a readiness gate).
+
+    Mirrors the reference's UDP metrics server that the Apollo harness
+    polls (util/include/MetricsServer.hpp:46, tests/apollo/util/
+    bft_metrics.py); the same reply bytes as tpubft/utils/metrics.py:144-182.
+    """
+
+    def __init__(self, aggregator: Aggregator, port: int = 0,
+                 host: str = "127.0.0.1"):
+        self._agg = aggregator
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self._sock.bind((host, port))
+        self._sock.settimeout(0.2)
+        self.port = self._sock.getsockname()[1]
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            try:
+                _, addr = self._sock.recvfrom(65536)
+            except socket.timeout:
+                continue
+            except OSError:
+                break
+            try:
+                self._sock.sendto(self._agg.to_json().encode(), addr)
+            except OSError:
+                pass
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=2)
+        self._sock.close()
