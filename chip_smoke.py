@@ -122,6 +122,29 @@ line each; any failure exits non-zero:
            holds. Printed: requests/s and commit latency p50/p90/p99
            beside the ledger_replica phase's, the catch-up seconds and
            blocks fetched;
+  tls_cluster
+           BASELINE config 5 as benchmarks/bench_e2e.py:87-90 and
+           :248-300 run it: first, on this machine, the port's TLS
+           material (comm/_der.py, no `cryptography`) without and with a
+           password, two TlsTcpCommunication endpoints exchanging a
+           message each way on each, and ssl.OPENSSL_VERSION; then four
+           `skvbc_replica` processes from
+           testing.BftTestNetwork(transport="tls") on the card, f=1,
+           threshold-bls certificates, ecdsa-p256 clients, the
+           view-change timeout at 3,000 ms, device_min_verify_batch 4 (as
+           process_cluster), every other setting at ReplicaConfig()'s
+           defaults. 16 closed-loop SkvbcClients write kvbcbench blocks
+           for 60 s while a storm thread pauses the current primary
+           (SIGSTOP, the largest view the replicas report, modulo 4)
+           every 4 s for the timeout plus 1 s; then 60 acknowledged keys
+           are read back and the four last_executed must agree. Fails
+           unless every process reports a view of at least 3, writes
+           committed in every storm cycle, P-256 RLC and Ed25519 verify
+           launches (summed over the processes) above 0, health healthy
+           with every breaker closed and no verify degraded. Printed:
+           requests/s, commit latency p50/p90/p99, each storm cycle
+           (view, primary, writes committed), each process's view and
+           launches, each step's seconds;
   bls_plane
            BLS certificates on the card: config 2's keys (n=7 f=2 c=0,
            threshold-bls, threshold 5) and 64 slots through
@@ -243,7 +266,8 @@ line each; any failure exits non-zero:
            hashlib over the same messages and the plain version at
            B=1024;
   kernels  every kernel with its launches on its path (the plane, the
-           two in-process clusters and the replica processes, the ladder,
+           two in-process clusters and the replica processes of configs
+           1 and 5, the ladder,
            the ledger replica's and the restarted replica process's
            catch-ups and the state-transfer digests; the verify and
            SHA-256 rows split them by path), its match against the plain
@@ -1544,9 +1568,10 @@ def _replica_report(net, r: int) -> dict:
     kernels = status("kernels")
     devinfo = status("device")
     health = status("health")
+    gauges = comps.get("replica", {}).get("gauges", {})
     return {
-        "last_executed": comps.get("replica", {}).get("gauges", {}).get(
-            "last_executed_seq"),
+        "last_executed": gauges.get("last_executed_seq"),
+        "view": gauges.get("view"),
         "sigs_device_dispatched": sig.get("sigs_device_dispatched"),
         "degraded_verifies": sig.get("degraded_verifies"),
         "scalar_fallbacks": sig.get("scalar_fallbacks"),
@@ -1558,6 +1583,9 @@ def _replica_report(net, r: int) -> dict:
         "section_ms": {k: v["total_ms"] for k, v in kernels.items()},
         "launches": {k: v for k, v in devinfo.get("launches", {}).items()
                      if v},
+        "rlc_launches_by_curve": {
+            c: v["rlc_launches"] for c, v in devinfo.get(
+                "ecdsa_rlc_by_curve", {}).items() if v["rlc_launches"]},
         "device": devinfo.get("device"),
         "memory_reserved": devinfo.get("memory_reserved"),
         "health": health.get("verdict"),
@@ -1757,6 +1785,366 @@ def phase_process_cluster(torch, dev, ledger_replica: dict,
         "in_process_requests_per_s": inproc["requests_per_s"],
         "in_process_commit_latency_ms": inproc["commit_latency_ms"],
         "in_process_clients": ledger_replica["config"]["clients"]}
+    out["wall_s"] = time.monotonic() - t_phase
+    emit(out)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
+_BLOCK_CRYPTOGRAPHY = """
+import json, sys
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name == "cryptography" or name.startswith("cryptography."):
+            raise ModuleNotFoundError("blocked: " + name)
+sys.meta_path.insert(0, _Block())
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+out = chip_smoke._tls_handshakes()
+assert not [m for m in sys.modules if m.split(".")[0] == "cryptography"]
+print(json.dumps(out))
+"""
+
+
+def _tls_handshakes_without_cryptography() -> dict:
+    """_tls_handshakes in a child process in which every `cryptography`
+    import raises, whether or not this machine has the package."""
+    proc = subprocess.run([sys.executable, "-c", _BLOCK_CRYPTOGRAPHY, HERE],
+                          capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0:
+        raise AssertionError("TLS handshakes with `cryptography` blocked "
+                             f"failed:\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _tls_handshakes() -> dict:
+    """TLS material written by the port on this machine (no
+    `cryptography` needed), without and with a password: two
+    TlsTcpCommunication endpoints exchange one message each way on each.
+    -> {"plain": ms, "password": ms} (material to both deliveries)."""
+    import shutil
+    import socket
+    import tempfile
+    import threading
+
+    from tpubft_torch.comm.tls import (TlsConfig, TlsTcpCommunication,
+                                       generate_tls_material)
+
+    class Sink:
+        def __init__(self):
+            self.got = threading.Event()
+
+        def on_connection_status_changed(self, *_):
+            pass
+
+        def on_new_message(self, sender, data):
+            self.got.set()
+
+    out = {}
+    for name, password in (("plain", None), ("password", "chip-smoke-pw")):
+        d = tempfile.mkdtemp(prefix="chip-smoke-tls-material-")
+        socks = [socket.socket() for _ in range(2)]
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        eps = {i: ("127.0.0.1", s.getsockname()[1])
+               for i, s in enumerate(socks)}
+        for s in socks:
+            s.close()
+        t0 = time.monotonic()
+        nodes = []
+        try:
+            generate_tls_material(d, [0, 1], password=password)
+            for i in (0, 1):
+                nodes.append(TlsTcpCommunication(TlsConfig(
+                    self_id=i, endpoints=eps, certs_dir=d,
+                    key_password=password)))
+            sinks = [Sink(), Sink()]
+            for n, sk in zip(nodes, sinks):
+                n.start(sk)
+            nodes[1].send(0, b"1->0")
+            nodes[0].send(1, b"0->1")
+            if not all(sk.got.wait(30) for sk in sinks):
+                raise AssertionError(f"TLS endpoints ({name} key) did not "
+                                     "exchange a message both ways")
+            out[name] = (time.monotonic() - t0) * 1e3
+        finally:
+            for n in nodes:
+                n.stop()
+            shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+class _Storm:
+    """Config 5's view-change storm (benchmarks/bench_e2e.py:248-264):
+    every `period_s` the current primary (the largest view the live
+    replicas report, modulo n) is paused with SIGSTOP for the
+    view-change timeout plus 1 s, then resumed. Each cycle records the
+    view and primary at its pause and the writes committed by then
+    (`committed()`); `timeline` holds [seconds, largest view, writes
+    committed] every half second where either changed."""
+
+    def __init__(self, net, committed, period_s: float):
+        import threading
+        self.net = net
+        self.committed = committed
+        self.period_s = period_s
+        self.cycles = []
+        self.timeline = []
+        self.errors = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._sampler = threading.Thread(target=self._sample, daemon=True)
+        self._t0 = time.monotonic()
+
+    def _sample(self) -> None:
+        net = self.net
+        while not self._stop.wait(0.5):
+            views = [net.metrics(r).get("replica", "gauges", "view",
+                                        timeout=0.2)
+                     for r in range(net.n) if r not in net.paused]
+            row = [max((v for v in views if v is not None), default=None),
+                   self.committed()]
+            if not self.timeline or self.timeline[-1][1:] != row:
+                self.timeline.append([round(time.monotonic() - self._t0,
+                                            1)] + row)
+
+    def _run(self) -> None:
+        net = self.net
+        try:
+            while not self._stop.wait(self.period_s):
+                views = [net.current_view(r) for r in range(net.n)]
+                view = max((v for v in views if v is not None), default=0)
+                r = view % net.n
+                self.cycles.append({
+                    "t_s": time.monotonic() - self._t0, "view": view,
+                    "primary": r, "committed_at_pause": self.committed()})
+                net.pause_replica(r)
+                try:
+                    self._stop.wait(net.view_change_timeout_ms / 1000.0
+                                    + 1.0)
+                finally:
+                    net.resume_replica(r)
+        except Exception as exc:  # noqa: BLE001 — reported by the phase
+            self.errors.append(f"{type(exc).__name__}: {exc}")
+
+    def start(self) -> "_Storm":
+        self._thread.start()
+        self._sampler.start()
+        return self
+
+    def stop(self) -> list:
+        """Stop the storm (the paused replica resumed); -> the cycles,
+        each with the writes committed until the next cycle's pause (or
+        the storm's stop). A second call returns them as they were."""
+        if self._stop.is_set():
+            return self.cycles
+        self._stop.set()
+        self._thread.join(30)
+        self._sampler.join(5)
+        end = self.committed()
+        for i, c in enumerate(self.cycles):
+            nxt = (self.cycles[i + 1]["committed_at_pause"]
+                   if i + 1 < len(self.cycles) else end)
+            c["committed_in_cycle"] = nxt - c["committed_at_pause"]
+        return self.cycles
+
+
+def _proc_cpu_s(pid: int) -> float:
+    """User plus system CPU seconds of process `pid` (/proc/<pid>/stat);
+    -1.0 where it cannot be read."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+        return (int(fields[11]) + int(fields[12])) / os.sysconf(
+            "SC_CLK_TCK")
+    except (OSError, IndexError, ValueError):
+        return -1.0
+
+
+def _slot_stages(net, r: int) -> dict:
+    """Replica r's per-slot stage times (`status get slots`: admission
+    wait, dispatch, prepare, commit, execution, reply; ms p50 and mean
+    over its completed slots)."""
+    text = net.status(r, "slots")
+    stages = json.loads(text)["summary"].get("stages", {}) if text else {}
+    return {k: {"p50_ms": v["p50_ms"], "avg_ms": v["avg_ms"]}
+            for k, v in stages.items() if v["count"]}
+
+
+def _print_log_tails(log_dir: str, lines: int = 60) -> None:
+    """The last `lines` lines of each replica process's log, to stderr
+    (a failed cluster phase's diagnosis)."""
+    for name in sorted(os.listdir(log_dir)):
+        with open(os.path.join(log_dir, name), errors="replace") as f:
+            tail = f.readlines()[-lines:]
+        print(f"---- {name} ----\n" + "".join(tail), file=sys.stderr,
+              flush=True)
+
+
+def phase_tls_cluster(torch, dev, clients: int = 16, load_s: float = 60.0,
+                      period_s: float = 4.0,
+                      view_change_timeout_ms: int = 3000,
+                      device_min_verify_batch: int = 4, reads: int = 60,
+                      min_view_changes: int = 3) -> dict:
+    """BASELINE config 5 as benchmarks/bench_e2e.py:87-90 and :248-300
+    run it ("Mixed ECDSA-P256 client auth + BLS threshold, TLS
+    transport, view-change storm"): four replica OS processes from
+    testing.BftTestNetwork(transport="tls") on the card, f=1,
+    threshold-bls certificates, ecdsa-p256 clients, the view-change
+    timeout at 3,000 ms, `device_min_verify_batch` 4 (as
+    process_cluster, for the same reason), every other setting at
+    ReplicaConfig()'s defaults, the tuner among them. First, on this
+    machine, the port's TLS material without and with a password and
+    two TlsTcpCommunication endpoints exchanging a message both ways on
+    each (OpenSSL loads the port's PBES2 keys; `ssl.OPENSSL_VERSION`
+    printed). Then `clients` closed-loop SkvbcClients write kvbcbench
+    blocks for `load_s` while _Storm pauses the current primary every
+    `period_s` for the timeout plus 1 s; then the storm stops, `reads`
+    acknowledged keys are read back and the four last_executed must
+    agree. Read from every process, failing if one is missing: its
+    view at least `min_view_changes`, P-256 RLC launches and Ed25519
+    verify launches (each summed over the processes) above 0, health
+    healthy with every breaker closed, no verify degraded; and writes
+    committed in every storm cycle."""
+    import importlib.util
+    import shutil
+    import ssl
+    import tempfile
+
+    import numpy as np
+
+    from tpubft_torch import testing
+    from tpubft_torch.testing.network import BftTestNetwork, build_libraries
+
+    t_phase = time.monotonic()
+    out = {"phase": "tls_cluster", "n": 4, "f": 1, "clients": clients,
+           "transport": "tls", "threshold_scheme": "threshold-bls",
+           "client_sig_scheme": "ecdsa-p256",
+           "view_change_timeout_ms": view_change_timeout_ms,
+           "storm_period_s": period_s,
+           "device_min_verify_batch": device_min_verify_batch,
+           "openssl": ssl.OPENSSL_VERSION,
+           "cryptography_installed":
+               importlib.util.find_spec("cryptography") is not None}
+    steps = out["steps_s"] = {}
+    t0 = time.monotonic()
+    out["handshake_ms"] = _tls_handshakes_without_cryptography()
+    steps["handshakes"] = time.monotonic() - t0
+    emit({"phase": "tls_cluster", "step": "handshakes",
+          **{k: out[k] for k in ("openssl", "cryptography_installed",
+                                 "handshake_ms")}})
+
+    problems = []
+    log_dir = tempfile.mkdtemp(prefix="chip-smoke-tls-")
+    t0 = time.monotonic()
+    net = BftTestNetwork(f=1, num_clients=clients, seed="chip-smoke-tls",
+                         device="cuda", transport="tls",
+                         threshold_scheme="threshold-bls",
+                         client_sig_scheme="ecdsa-p256",
+                         view_change_timeout_ms=view_change_timeout_ms,
+                         device_min_verify_batch=device_min_verify_batch,
+                         log_dir=log_dir)
+    steps["material"] = time.monotonic() - t0
+    storm = None
+    try:
+        t0 = time.monotonic()
+        out["build_s"] = build_libraries("cuda")
+        steps["build"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        net.start_all(timeout=120)
+        steps["start"] = time.monotonic() - t0
+        out["start_s"] = dict(net.start_s)
+        emit({"phase": "tls_cluster", "step": "up", "steps_s": steps,
+              "start_s": out["start_s"]})
+        kvs = [net.skvbc_client(i) for i in range(clients)]
+        writes = _KvbcbenchWrites(kvs, testing.kvbcbench_rows(64),
+                                  timeout_ms=60000)
+        loop = _ClosedLoop(clients, writes)
+
+        # ---- load under the storm ----
+        t0 = time.monotonic()
+        cpu0 = {r: _proc_cpu_s(p.pid) for r, p in net.procs.items()}
+        storm = _Storm(net, lambda: sum(writes.next_write),
+                       period_s).start()
+        load = loop.run(lambda n: False, budget_s=load_s)
+        cycles = storm.stop()
+        steps["load"] = time.monotonic() - t0
+        # each replica process's CPU seconds over the load: near 1 a
+        # second of load, its interpreter is the bottleneck
+        out["cpu_s_per_load_s"] = {
+            r: (_proc_cpu_s(p.pid) - cpu0[r]) / steps["load"]
+            for r, p in net.procs.items()}
+        load.pop("timed_out")
+        out["load"] = load
+        out["storm"] = {"cycles": cycles, "timeline": storm.timeline,
+                        "errors": storm.errors}
+        emit({"phase": "tls_cluster", "step": "load", **load,
+              "storm": out["storm"]})
+        if loop.errors or storm.errors:
+            raise AssertionError(f"load: {loop.errors[:3]}, storm: "
+                                 f"{storm.errors}")
+        halted = [c for c in cycles if c["committed_in_cycle"] < 1]
+        if len(cycles) < min_view_changes or halted:
+            problems.append(f"storm: {len(cycles)} cycles, no write "
+                            f"committed in {halted}")
+
+        # ---- read-back, agreement ----
+        t0 = time.monotonic()
+        rng = np.random.default_rng(5)
+        keys = sorted(writes.acked)
+        sample = [keys[i] for i in rng.choice(len(keys), size=min(
+            reads, len(keys)), replace=False)]
+        got = {}
+        for i in range(0, len(sample), 10):
+            got.update(kvs[i // 10 % clients].read(sample[i:i + 10],
+                                                    timeout_ms=60000))
+        wrong = [k for k in sample if got.get(k) != writes.acked[k]]
+        out["read_back"] = {"keys": len(sample), "wrong": len(wrong)}
+        if len(sample) < reads or wrong:
+            problems.append(f"read-back: {len(wrong)} of {len(sample)} "
+                            "keys wrong")
+        out["last_executed"] = _equal_last_executed(net, range(net.n),
+                                                    timeout=60)
+        steps["read_back"] = time.monotonic() - t0
+
+        # ---- what each process ran ----
+        reports = {r: _replica_report(net, r) for r in range(net.n)}
+        for r, rep in reports.items():
+            rep["slot_stages"] = _slot_stages(net, r)
+        out["replicas"] = reports
+        for r, rep in reports.items():
+            if rep["view"] is None or rep["view"] < min_view_changes:
+                problems.append(f"replica {r}: view {rep['view']}, fewer "
+                                f"than {min_view_changes} view changes")
+            if rep["degraded_verifies"] != 0:
+                problems.append(f"replica {r}: degraded verifies "
+                                f"{rep['degraded_verifies']}")
+            if rep["health"] != "healthy" or rep["open_breakers"]:
+                problems.append(f"replica {r}: health {rep['health']}, "
+                                f"open breakers {rep['open_breakers']}")
+        out["views"] = [rep["view"] for rep in reports.values()]
+        out["launches_by_process"] = {
+            r: {"ed25519_verify": rep["launches"].get("ed25519_verify", 0),
+                "ecdsa_rlc_p256": rep["rlc_launches_by_curve"].get(
+                    "secp256r1", 0),
+                "bls_msm": rep["launches"].get("bls_msm", 0),
+                "sha256": rep["launches"].get("sha256", 0)}
+            for r, rep in reports.items()}
+        out["verify_launches"] = sum(v["ed25519_verify"] for v in
+                                     out["launches_by_process"].values())
+        out["rlc_p256_launches"] = sum(v["ecdsa_rlc_p256"] for v in
+                                       out["launches_by_process"].values())
+        if out["verify_launches"] < 1 or out["rlc_p256_launches"] < 1:
+            problems.append(f"launches: verify {out['verify_launches']}, "
+                            f"P-256 RLC {out['rlc_p256_launches']}")
+    finally:
+        if storm is not None:
+            storm.stop()
+        net.stop_all()
+        if problems or sys.exc_info()[0] is not None:
+            _print_log_tails(log_dir)
+        shutil.rmtree(log_dir, ignore_errors=True)
     out["wall_s"] = time.monotonic() - t_phase
     emit(out)
     if problems:
@@ -2888,7 +3276,7 @@ def phase_offload(torch, dev, bls_plane, ecdsa_plane) -> dict:
 
 
 def ecdsa_kernel_rows(torch, dev, ecdsa_plane, ecdsa_ledger, offload,
-                      sm_clock_mhz) -> list:
+                      tls_cluster, sm_clock_mhz) -> list:
     """The ECDSA kernels at their paths' shapes
     (tools/ecdsa_probe.measure): ecdsa_rlc for secp256k1 at the config-3
     cluster's median lanes a launch and at B = 128, for P-256 at B = 128;
@@ -2934,6 +3322,9 @@ def ecdsa_kernel_rows(torch, dev, ecdsa_plane, ecdsa_ledger, offload,
         if curve == "secp256k1":
             by_path["ecdsa_ledger_replica"] = ecdsa_ledger["load"][
                 "rlc_launches"]
+        else:
+            # config 5's four replica processes (P-256 clients)
+            by_path["tls_cluster"] = tls_cluster["rlc_p256_launches"]
         bd = bound(m["ops"], m["bytes"])
         rows.append({
             "name": "ecdsa_rlc", "route": "cuda", "source": src,
@@ -3703,9 +4094,9 @@ def sha256_rate_row(torch, dev, b: int, sm_clock_mhz: float) -> dict:
 
 
 def phase_kernels(torch, dev, plane, replica, ledger_replica,
-                  process_cluster, kernel, ladder, ledger, digest, bls_plane,
-                  bls_ledger, ecdsa_plane, ecdsa_ledger, offload, mesh,
-                  sm_clock_mhz) -> dict:
+                  process_cluster, tls_cluster, kernel, ladder, ledger,
+                  digest, bls_plane, bls_ledger, ecdsa_plane, ecdsa_ledger,
+                  offload, mesh, sm_clock_mhz) -> dict:
     """Every kernel, timed at its path's shape: the verify kernel at one
     PrePrepare drain of 100 signatures, the ladder kernels at the ladder's
     1024 lanes, SHA-256 at a state-transfer window of 64 raw blocks that
@@ -3728,15 +4119,17 @@ def phase_kernels(torch, dev, plane, replica, ledger_replica,
            "source": "tpubft_torch/ops/csrc/ed25519_verify.cu",
            "replaces": "tpubft/ops/ed25519_pallas.py:421",
            # the main path's runs: the plane, the two in-process
-           # clusters and the replica processes
+           # clusters and the replica processes (configs 1 and 5)
            "launches": plane["launches"]["ed25519_verify"]
            + replica["verify_launches"] + ledger_replica["verify_launches"]
-           + process_cluster["verify_launches"],
+           + process_cluster["verify_launches"]
+           + tls_cluster["verify_launches"],
            "launches_by_path": {
                "plane": plane["launches"]["ed25519_verify"],
                "replica": replica["verify_launches"],
                "ledger_replica": ledger_replica["verify_launches"],
                "process_cluster": process_cluster["verify_launches"],
+               "tls_cluster": tls_cluster["verify_launches"],
                "ladder": next(r["launches"] for r in ladder["rungs"]
                               if r["kernel"] == "ed25519_verify")},
            "replica_signatures_per_launch":
@@ -3780,7 +4173,7 @@ def phase_kernels(torch, dev, plane, replica, ledger_replica,
     rows += bls_kernel_rows(torch, dev, bls_plane, bls_ledger, offload,
                             sm_clock_mhz)
     rows += ecdsa_kernel_rows(torch, dev, ecdsa_plane, ecdsa_ledger, offload,
-                              sm_clock_mhz)
+                              tls_cluster, sm_clock_mhz)
     rows.append(combine_kernel_row(mesh))
     out = {"kernels": rows}
     emit(out)
@@ -4024,6 +4417,7 @@ def main() -> int:
     replica = phase_replica(torch, dev)
     ledger_replica = phase_ledger_replica(torch, dev)
     process_cluster = phase_process_cluster(torch, dev, ledger_replica)
+    tls_cluster = phase_tls_cluster(torch, dev)
     bls_plane = phase_bls_plane(torch, dev)
     bls_ledger = phase_bls_ledger_replica(torch, dev)
     ecdsa_plane = phase_ecdsa_plane(torch, dev)
@@ -4034,9 +4428,9 @@ def main() -> int:
     digest = phase_digest(torch, dev, ledger.pop("raws"))
     phase_rate(torch, dev, clock, info["nvidia_smi"])
     phase_kernels(torch, dev, plane, replica, ledger_replica,
-                  process_cluster, kernel, ladder, ledger, digest, bls_plane,
-                  bls_ledger, ecdsa_plane, ecdsa_ledger, offload, mesh,
-                  clock)
+                  process_cluster, tls_cluster, kernel, ladder, ledger,
+                  digest, bls_plane, bls_ledger, ecdsa_plane, ecdsa_ledger,
+                  offload, mesh, clock)
     emit({"phase": "done", "wall_s": time.monotonic() - t_start})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -285,17 +285,39 @@ def test_factory_builds_udp_and_tcp():
 
 
 @pytest.mark.parametrize("transport", ["tls", "tls-mux"])
-def test_factory_refuses_tls(transport):
-    cfg = CommConfig(self_id=0, endpoints={0: ("127.0.0.1", 1)})
-    with pytest.raises(NotImplementedError, match="A.9.1b"):
+def test_factory_builds_tls(tmp_path, transport):
+    """"tls" is the pinned-cert TLS transport; "tls-mux" the endpoint
+    multiplexer over it, with the client floor the config names."""
+    from tpubft_torch.comm import (MultiplexTransport, TlsConfig,
+                                   TlsTcpCommunication)
+    from tpubft_torch.comm.tls import generate_tls_material
+    generate_tls_material(tmp_path, [0, 1], seed=b"factory")
+    cfg = TlsConfig(self_id=0, endpoints={0: ("127.0.0.1", 1),
+                                          1: ("127.0.0.1", 2)},
+                    certs_dir=str(tmp_path), mux_client_floor=1)
+    comm = create_communication(cfg, transport)
+    if transport == "tls":
+        assert type(comm) is TlsTcpCommunication
+        assert comm.directional
+    else:
+        assert isinstance(comm, MultiplexTransport)
+        assert type(comm._inner) is TlsTcpCommunication
+        assert comm._is_client(1) and not comm._is_client(0)
+    assert type(create_communication(cfg)) is TlsTcpCommunication
+
+
+@pytest.mark.parametrize("transport, config, error", [
+    ("tls", "plain", TypeError), ("tls-mux", "plain", TypeError),
+    ("tls-mux", "no-floor", ValueError)])
+def test_factory_tls_config_errors(tmp_path, transport, config, error):
+    """The reference's TypeError for a TLS transport on a plain config
+    and ValueError for tls-mux without a client floor."""
+    from tpubft_torch.comm import TlsConfig
+    eps = {0: ("127.0.0.1", 1)}
+    cfg = (CommConfig(self_id=0, endpoints=eps) if config == "plain"
+           else TlsConfig(self_id=0, endpoints=eps, certs_dir=str(tmp_path)))
+    with pytest.raises(error):
         create_communication(cfg, transport)
-
-
-def test_factory_refuses_a_tls_config():
-    class TlsLike(CommConfig):
-        certs_dir = "/nonexistent"
-    with pytest.raises(NotImplementedError, match="A.9.1b"):
-        create_communication(TlsLike(self_id=0, endpoints={}))
 
 
 # ---- wire bytes against the reference ----

@@ -5,7 +5,8 @@ version, the bring-up kernels against theirs, the ECDSA kernels against
 their plain versions and the host engine (and rlc_verify_batch's
 bisection), a short config-1 replica cluster on the card, and an SKVBC ledger cluster (one write
 through the durability pipeline, one catch-up by state transfer whose
-windows go through the SHA-256 kernel). Marked `cuda`; each test
+windows go through the SHA-256 kernel), and BASELINE config 5 over TLS
+under a view-change storm. Marked `cuda`; each test
 skips where no card is present (run on the card:
 python -m pytest --noconftest tests/test_torch_cuda.py).
 """
@@ -566,6 +567,24 @@ def test_ecdsa_rlc_verify_batch_bisects_on_the_card(card, curve):
     assert ec.LAUNCHES["ecdsa_verify"] == 1
 
 
+@pytest.mark.parametrize("batch", [1, 3, 40])
+def test_ecdsa_inputs_cross_to_the_card_in_one_copy(card, batch):
+    """ops/ecdsa.to_tensors on the card: the RLC kernel's nine inputs are
+    views of one device buffer (one copy), each contiguous, of its dtype
+    and shape, and equal to the CPU path's tensors."""
+    from tpubft_torch.ops import ecdsa as E
+    items = testing.ecdsa_corpus("secp256r1", batch, seed=batch)
+    prep = E.prepare_rlc_batch("secp256r1", items)
+    cols = E.rlc_columns(prep, range(batch))
+    got = E.to_tensors(cols, card)
+    want = E.to_tensors(cols, torch.device("cpu"))
+    assert len({t.untyped_storage().data_ptr() for t in got}) == 1
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.is_contiguous()
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.cpu(), w)
+
+
 @pytest.mark.parametrize("curve", ["secp256k1", "secp256r1"])
 def test_ecdsa_kernels_on_exceptional_lanes(card, curve):
     """testing.ecdsa_exceptional_lanes on the card (P = Q and P = -Q in
@@ -752,3 +771,13 @@ def test_process_cluster_on_the_card(card):
         assert status(3, "device")["launches"]["sha256"] > 0
     finally:
         net.stop_all()
+
+
+def test_config5_storm_on_the_card(card):
+    """BASELINE config 5 (P-256 clients, threshold-BLS, TLS) on four
+    replica processes on the card under a view-change storm
+    (tests/test_torch_processes.config5_storm)."""
+    # the tests directory is on sys.path (no __init__.py): imported by
+    # its module name, as pytest imported it
+    from test_torch_processes import config5_storm
+    config5_storm("cuda")

@@ -422,6 +422,55 @@ def _verifiers(keys_cls, cfg_cls):
     return table.get
 
 
+def test_view_change_quorum_checks_each_certificate_once():
+    """compute_restrictions validates each distinct certificate of the
+    quorum once, in one verify_batch_certs call a verifier (no per-cert
+    verify), and gives the restrictions of the reference's per-cert
+    loop, the quorum's messages carrying the same certificates."""
+    certs = _certs(np.random.default_rng(SEED))
+    port_for = _verifiers(PortKeys, PortConfig)
+    calls = {"batch": [], "single": 0}
+
+    class Counting:
+        def __init__(self, inner):
+            self.inner = inner
+
+        def verify(self, d, s):
+            calls["single"] += 1
+            return self.inner.verify(d, s)
+
+        def verify_batch_certs(self, items):
+            calls["batch"].append(len(items))
+            return self.inner.verify_batch_certs(items)
+    wrapped = {}
+
+    def counted_for(kind):
+        v = port_for(kind)
+        if v is None:
+            return None
+        return wrapped.setdefault(id(v), Counting(v))
+    msgs = [dict(sender_id=s, new_view=3, last_stable_seq=0,
+                 prepared=certs, signature=b"s") for s in range(3)]
+
+    def vcs(mod):
+        return [mod.ViewChangeMsg(**dict(
+            v, prepared=[mod.PreparedCertificate(**c)
+                         for c in v["prepared"]])) for v in msgs]
+    port_out = port_vc.compute_restrictions(vcs(port_m), _share_digest,
+                                            counted_for, report_quorum=2)
+    ref_out = ref_vc.compute_restrictions(vcs(ref_m), _share_digest,
+                                          _verifiers(RefKeys, RefConfig),
+                                          report_quorum=2)
+    assert {s: port_vc.pack_restriction(r) for s, r in port_out.items()} \
+        == {s: ref_vc.pack_restriction(r) for s, r in ref_out.items()}
+    distinct = {(c["kind"], c["view"], c["seq_num"], c["pp_digest"],
+                 c["combined_sig"]) for c in certs
+                if c["kind"] in _PATHS}
+    assert calls["single"] == 0
+    assert len(calls["batch"]) == len(wrapped)
+    assert sum(calls["batch"]) == len(distinct)
+
+
 def test_view_change_certificate_checks_match_the_reference():
     rng = np.random.default_rng(SEED)
     certs = _certs(rng)

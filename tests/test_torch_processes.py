@@ -3,9 +3,10 @@ apps/skvbc_replica, apps/tester_client) and its process cluster
 (testing/network.BftTestNetwork) on this host's CPU (`--device cpu`:
 the cuda backend's wrappers run their plain versions on CPU tensors),
 held to what tests/test_skvbc_processes.py holds the reference to, plus
-a cluster of reference and port replicas over UDP (the direct wire
-check), the UDP metrics server's reply against the reference's, and the
-refusals of the planes not ported yet. Every test waits on state under
+clusters over TCP, TLS and tls-mux, clusters of reference and port
+replicas over UDP and over TLS (the direct wire check), the UDP metrics
+server's reply against the reference's, and the refusals of the planes
+not ported yet. Every test waits on state under
 its own deadline and kills its processes in a `finally`."""
 import errno
 import json
@@ -196,9 +197,55 @@ def test_four_process_cluster_over_tcp():
         net.stop_all()
 
 
+@pytest.mark.parametrize("transport", ["tls", "tls-mux"])
+def test_four_process_cluster_over_tls(transport):
+    """Four port replica processes and two clients over TLS (and the
+    endpoint multiplexer over TLS): writes commit, read back, and the
+    four last_executed agree; the network's material is gone after
+    stop_all."""
+    net = BftTestNetwork(f=1, num_clients=2, seed=f"port-{transport}",
+                         device="cpu", transport=transport)
+    certs = net.certs_dir
+    try:
+        net.start_all(timeout=180)
+        kvs = [net.skvbc_client(i) for i in range(2)]
+        acked = _load(kvs, 3, b"s")
+        assert kvs[1].read(sorted(acked), timeout_ms=60000) == acked
+        _equal_last_executed(net, range(4))
+    finally:
+        net.stop_all()
+    assert not os.path.exists(certs) and net.certs_dir is None
+
+
+@pytest.mark.parametrize("transport", ["tls", "tls-mux"])
+def test_network_writes_tls_material_for_every_principal(transport):
+    """BftTestNetwork(transport=tls|tls-mux) writes a key and a
+    certificate for the replicas, the clients and the operator (as the
+    reference's network does under db_dir/tls), passes --certs-dir to
+    every replica, and removes the material in stop_all."""
+    net = BftTestNetwork(f=1, num_clients=3, device="cpu",
+                         transport=transport)
+    try:
+        ids = sorted(int(name[5:-4]) for name in os.listdir(net.certs_dir)
+                     if name.endswith(".crt"))
+        assert ids == [0, 1, 2, 3, 4, 5, 6, net._operator_id()]
+        for i in ids:
+            assert os.path.exists(os.path.join(net.certs_dir,
+                                               f"node-{i}.key"))
+        comm = net._make_comm(4, {i: ("127.0.0.1", 1) for i in ids})
+        assert type(comm).__name__ == ("TlsTcpCommunication"
+                                       if transport == "tls"
+                                       else "MultiplexTransport")
+    finally:
+        certs = net.certs_dir
+        net.stop_all()
+    assert not os.path.exists(certs)
+
+
 def _spawn_reference(net, r):
     """A replica of the JAX package's tpubft.apps.skvbc_replica on the
-    CPU, on the port network's ports and seed."""
+    CPU, on the port network's ports, seed and transport (over TLS with
+    the material the port network wrote)."""
     cmd = [sys.executable, "-m", "tpubft.apps.skvbc_replica",
            "--replica", str(r), "--f", str(net.f),
            "--clients", str(net.num_clients),
@@ -207,7 +254,10 @@ def _spawn_reference(net, r):
            "--crypto-backend", "cpu",
            "--checkpoint-window", str(net.checkpoint_window),
            "--work-window", str(net.work_window),
-           "--view-change-timeout-ms", str(net.view_change_timeout_ms)]
+           "--view-change-timeout-ms", str(net.view_change_timeout_ms),
+           "--transport", net.transport]
+    if net.transport in ("tls", "tls-mux"):
+        cmd += ["--certs-dir", net.certs_dir]
     net.procs[r] = subprocess.Popen(
         cmd, env=dict(os.environ, PYTHONPATH=ROOT, JAX_PLATFORMS="cpu"),
         stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
@@ -218,8 +268,20 @@ def test_mixed_cluster_of_reference_and_port_replicas():
     clients, all over UDP: every write commits (a quorum needs both
     packages), reads agree from every client, and all four replicas end
     at the same last_executed."""
-    net = BftTestNetwork(f=1, num_clients=2, seed="port-mixed",
-                         device="cpu", checkpoint_window=5, work_window=10)
+    _mixed_cluster("udp")
+
+
+def test_mixed_cluster_of_reference_and_port_replicas_over_tls():
+    """The same over TLS: the reference's replicas load the certificates
+    and keys the port's network wrote, and every pair of the two
+    packages completes its handshakes both ways."""
+    _mixed_cluster("tls")
+
+
+def _mixed_cluster(transport):
+    net = BftTestNetwork(f=1, num_clients=2, seed=f"port-mixed-{transport}",
+                         device="cpu", checkpoint_window=5, work_window=10,
+                         transport=transport)
     try:
         network.build_libraries("cpu")
         for r in (0, 1):
@@ -307,9 +369,6 @@ def test_replica_without_a_card_exits_with_no_device(module):
     (["--pre-execution"], "A.9.4"),
     (["--prom-port", "0"], "A.9.5"),
     (["--fault-port", "0"], "A.9.6"),
-    (["--transport", "tls"], "A.9.1b"),
-    (["--transport", "tls-mux"], "A.9.1b"),
-    (["--certs-dir", "/nonexistent"], "A.9.1b"),
 ])
 def test_skvbc_replica_refuses_unported_options(argv, step):
     args = skvbc_replica.make_parser().parse_args(["--replica", "0"] + argv)
@@ -319,8 +378,6 @@ def test_skvbc_replica_refuses_unported_options(argv, step):
 
 @pytest.mark.parametrize("kw, step", [
     (dict(db_dir="/nonexistent"), "A.9.2"),
-    (dict(transport="tls"), "A.9.1b"),
-    (dict(transport="tls-mux"), "A.9.1b"),
     (dict(pre_execution=True), "A.9.4"),
 ])
 def test_network_refuses_unported_options(kw, step):
@@ -343,3 +400,49 @@ def test_network_refuses_unported_planes(call, step):
     with pytest.raises(NotImplementedError, match=re.escape(step)):
         call(net)
     assert not net.procs
+
+
+def config5_storm(device: str, cycles: int = 3) -> None:
+    """BASELINE config 5 (tests/test_apollo_extended.py:183): ECDSA-P256
+    client signatures, threshold-BLS commit certificates and the TLS
+    transport under a view-change storm, on four port replica processes.
+    Each cycle pauses the current primary (read from the replicas'
+    metrics); the next write commits only after a view change deposes
+    it, and the paused replica resumes as a backup. Port divergence:
+    the reference kills primaries and restarts them on their `db_dir`;
+    the port refuses `db_dir` until A.9.2 (a restarted replica starts
+    empty), so the storm pauses them with SIGSTOP, as
+    benchmarks/bench_e2e.py's config-5 storm does."""
+    net = BftTestNetwork(f=1, num_clients=1, seed="port-config5",
+                         device=device, transport="tls",
+                         threshold_scheme="threshold-bls",
+                         client_sig_scheme="ecdsa-p256",
+                         view_change_timeout_ms=2000)
+
+    def view():
+        views = [net.current_view(r) for r in range(net.n)
+                 if r not in net.paused]
+        return max(v for v in views if v is not None)
+    try:
+        net.start_all(timeout=180)
+        kv = net.skvbc_client(0)
+        written = {}
+        for i in range(cycles + 1):
+            if i:
+                before = view()
+                net.pause_replica(before % net.n)
+            key, value = b"v%d" % i, b"%d" % (i + 1)
+            assert kv.write([(key, value)], timeout_ms=120000).success
+            written[key] = value
+            if i:
+                assert view() > before
+                net.resume_replica(before % net.n)
+        assert kv.read(sorted(written), timeout_ms=60000) == written
+        _equal_last_executed(net, range(net.n), timeout=120)
+    finally:
+        net.stop_all()
+
+
+@pytest.mark.slow
+def test_config5_ecdsa_bls_tls_view_change_storm():
+    config5_storm("cpu")

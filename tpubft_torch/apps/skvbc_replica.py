@@ -21,10 +21,12 @@ Port divergences (reference skvbc_replica.py:27-193):
 - The ledger lives in memory. The options of planes the port does not
   carry yet are refused with the ROADMAP step that ports them:
   `--db-dir` (A.9.2), `--kvbc-version v4` (A.9.3), `--trs-port`,
-  `--pre-execution` (A.9.4), `--prom-port` (A.9.5), `--fault-port`
-  (A.9.6), and `--transport tls|tls-mux` with `--certs-dir` (A.9.1b).
+  `--pre-execution` (A.9.4), `--prom-port` (A.9.5) and `--fault-port`
+  (A.9.6).
 - The UDP transport's netio counters (comm/udp.METRICS) are published
   beside the replica's own components.
+- `status get device` also reports ops/ecdsa.COUNTS (the RLC path's
+  launches a curve).
 """
 from __future__ import annotations
 
@@ -55,10 +57,7 @@ def refuse_unported(args) -> None:
             ("--trs-port", args.trs_port is not None, "A.9.4"),
             ("--pre-execution", args.pre_execution, "A.9.4"),
             ("--prom-port", args.prom_port is not None, "A.9.5"),
-            ("--fault-port", args.fault_port is not None, "A.9.6"),
-            (f"--transport {args.transport}",
-             args.transport in ("tls", "tls-mux"), "A.9.1b"),
-            ("--certs-dir", args.certs_dir is not None, "A.9.1b")):
+            ("--fault-port", args.fault_port is not None, "A.9.6")):
         if on:
             _not_ported(flag, step)
 
@@ -88,8 +87,19 @@ def build_replica(args, comm_wrapper=None) -> KvbcReplica:
     from tpubft_torch.consensus.replicas_info import ReplicasInfo
     eps = endpoint_table(args.base_port, cfg.n_val + args.ro, args.clients,
                          operator_id=ReplicasInfo.from_config(cfg).operator_id)
-    comm = create_communication(CommConfig(self_id=args.replica,
-                                           endpoints=eps), args.transport)
+    if args.transport in ("tls", "tls-mux"):
+        from tpubft_torch.comm.multiplex import client_floor
+        from tpubft_torch.comm.tls import TlsConfig
+        comm_cfg = TlsConfig(self_id=args.replica, endpoints=eps,
+                             certs_dir=args.certs_dir,
+                             key_password=os.environ.get(
+                                 "TPUBFT_TLS_KEY_PASSWORD"),
+                             mux_client_floor=(
+                                 client_floor(cfg.n_val, args.ro)
+                                 if args.transport == "tls-mux" else None))
+    else:
+        comm_cfg = CommConfig(self_id=args.replica, endpoints=eps)
+    comm = create_communication(comm_cfg, args.transport)
     if comm_wrapper is not None:
         # byzantine strategies that re-sign mutated messages (equivocate)
         # get the replica's own signing key — the reference's strategies
@@ -113,19 +123,20 @@ def device_status() -> str:
     """`status get device`: where this process's tensors live, the bytes
     its CUDA caching allocator holds, and each kernel wrapper's launch
     count since the process started (every wrapper counts where it
-    launches its kernel)."""
+    launches its kernel), and the RLC path's launches a curve."""
     import torch
 
     from tpubft_torch import device
-    from tpubft_torch.ops import (bls12_381_cuda, ecdsa_cuda, ed25519_cuda,
-                                  sha256_cuda)
+    from tpubft_torch.ops import (bls12_381_cuda, ecdsa, ecdsa_cuda,
+                                  ed25519_cuda, sha256_cuda)
     dev = device.default_device()
     return json.dumps({
         "device": str(dev),
         "memory_reserved": (torch.cuda.memory_reserved(dev)
                             if dev.type == "cuda" else 0),
         "launches": {**ed25519_cuda.LAUNCHES, **sha256_cuda.LAUNCHES,
-                     **bls12_381_cuda.LAUNCHES, **ecdsa_cuda.LAUNCHES}},
+                     **bls12_381_cuda.LAUNCHES, **ecdsa_cuda.LAUNCHES},
+        "ecdsa_rlc_by_curve": ecdsa.COUNTS},
         sort_keys=True)
 
 
@@ -152,7 +163,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--transport", default="udp",
                    choices=("udp", "tcp", "tls", "tls-mux"))
     p.add_argument("--certs-dir", default=None,
-                   help="TLS material dir (not ported: A.9.1b)")
+                   help="TLS material dir (node-<id>.key/.crt)")
     p.add_argument("--view-change-timeout-ms", type=int, default=4000)
     p.add_argument("--strategy", default=None,
                    help="byzantine strategy name (testing)")

@@ -4,14 +4,10 @@ tpubft/comm/factory.py).
 Rebuild of the reference's CommFactory
 (concord-bft communication/src/CommFactory.cpp — `create` dispatches
 on the config struct type: PlainUdpConfig / PlainTcpConfig /
-TlsTcpConfig, CommDefs.hpp). The string form serves flag-driven app
-wiring (reference CONCORD_BFT_CMAKE_TRANSPORT selects at build time —
-here it's a runtime choice).
-
-Port divergence (reference factory.py:20-46): the TLS transport is not
-ported yet (ROADMAP A.9.1b), so "tls", "tls-mux" and a TLS config (one
-that carries a `certs_dir`) are refused with NotImplementedError.
-"""
+TlsTcpConfig, CommDefs.hpp). Same pattern: a TlsConfig selects the TLS
+transport by type; the string form serves flag-driven app wiring
+(reference CONCORD_BFT_CMAKE_TRANSPORT selects at build time — here it's
+a runtime choice)."""
 from __future__ import annotations
 
 from tpubft_torch.comm.interfaces import CommConfig, ICommunication
@@ -21,13 +17,32 @@ from tpubft_torch.comm.udp import PlainUdpCommunication
 
 def create_communication(config: CommConfig,
                          transport: str = "") -> ICommunication:
-    """String dispatch: "udp" (the default) | "tcp"."""
-    if transport in ("tls", "tls-mux") or hasattr(config, "certs_dir"):
-        from tpubft_torch.consensus.replica import _not_ported
-        _not_ported(f"transport {transport or 'tls'!r}", "A.9.1b")
+    """Type-dispatch (TlsConfig => TLS) with an optional string override:
+    "udp" | "tcp" | "tls" | "tls-mux"."""
+    from tpubft_torch.comm.tls import TlsConfig, TlsTcpCommunication
+    if transport == "" and isinstance(config, TlsConfig):
+        transport = "tls"
     transport = transport or "udp"
     if transport == "udp":
         return PlainUdpCommunication(config)
     if transport == "tcp":
         return PlainTcpCommunication(config)
+    if transport == "tls":
+        if not isinstance(config, TlsConfig):
+            raise TypeError("tls transport needs a TlsConfig "
+                            "(certs_dir with node keys/certs)")
+        return TlsTcpCommunication(config)
+    if transport == "tls-mux":
+        # concord-bft TlsMultiplexCommunication: endpoint-numbered frames
+        # over the TLS transport so many principals share connections
+        if not isinstance(config, TlsConfig):
+            raise TypeError("tls-mux transport needs a TlsConfig")
+        if config.mux_client_floor is None:
+            raise ValueError("tls-mux needs TlsConfig.mux_client_floor "
+                             "(first client-space principal id)")
+        from tpubft_torch.comm.multiplex import MultiplexTransport
+        floor = config.mux_client_floor
+        return MultiplexTransport(TlsTcpCommunication(config),
+                                  self_id=config.self_id,
+                                  is_client=lambda i: i >= floor)
     raise ValueError(f"unknown transport {transport!r}")

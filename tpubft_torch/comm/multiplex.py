@@ -1,6 +1,6 @@
 """TLS multiplex transport: many principals per physical connection
-(port of tpubft/comm/multiplex.py; the port runs it over plain TCP until
-its TLS transport lands, ROADMAP A.9.1b).
+(port of tpubft/comm/multiplex.py; the factory's "tls-mux" runs it over
+comm/tls.TlsTcpCommunication).
 
 Rebuild of concord-bft's TlsMultiplexCommunication
 (communication/src/TlsMultiplexCommunication.cpp:22-80):

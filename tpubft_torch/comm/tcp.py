@@ -10,8 +10,7 @@ node accepts (the reference connection manager's convention), so
 simultaneous first-sends cannot race into crossed half-open connections.
 
 The security hooks `_wrap_outbound`, `_wrap_inbound` and
-`_authenticate_inbound` stay identities here: the TLS transport that
-overrides them is ROADMAP A.9.1b.
+`_authenticate_inbound` stay identities here; comm/tls.py overrides them.
 """
 from __future__ import annotations
 
@@ -353,9 +352,21 @@ class PlainTcpCommunication(ICommunication):
         addr = self._cfg.endpoints.get(node)
         if addr is None:
             return
+        # Port divergence (reference tcp.py:352, socket.create_connection):
+        # the dialing socket sets SO_REUSEADDR before its connect. Its
+        # local port comes from the kernel's ephemeral range, and a
+        # cluster whose listening ports lie in that range (every peer,
+        # clients included, dials every peer) could otherwise find a
+        # port it has yet to bind held by a live dial: the listener's
+        # bind then fails with EADDRINUSE (seen on the card, where a
+        # client's TLS listener started after the replicas dialed it)
+        sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        sock.settimeout(1.0)
         try:
-            sock = socket.create_connection(addr, timeout=1.0)
+            sock.connect(addr)
         except OSError:
+            _close(sock)
             return
         # absolute bound on the outbound handshake: a byzantine acceptor
         # dribbling handshake bytes must not stall the connect loop

@@ -181,6 +181,37 @@ def validate_certificate(cert: m.PreparedCertificate, share_digest_fn,
                        requests_digest=b"", pre_prepare=b"")
 
 
+def _validate_certificates(certs, share_digest_fn, verifier_for_kind
+                           ) -> Dict[tuple, Optional[Restriction]]:
+    """validate_certificate for each distinct threshold certificate among
+    `certs`, keyed by (kind, view, seq_num, pp_digest, combined_sig): one
+    `verify_batch_certs` call a verifier (per-cert verdicts, the
+    aggregated BLS check with its per-cert loop on failure) in place of
+    one `verify` a certificate."""
+    out: Dict[tuple, Optional[Restriction]] = {}
+    rows: Dict[object, List[Tuple[tuple, bytes, m.PreparedCertificate]]] = {}
+    for cert in certs:
+        key = (cert.kind, cert.view, cert.seq_num, cert.pp_digest,
+               cert.combined_sig)
+        if key in out:
+            continue
+        tag = _CERT_TAG.get(cert.kind)
+        verifier = verifier_for_kind(cert.kind) if tag is not None else None
+        out[key] = None
+        if verifier is not None:
+            rows.setdefault(verifier, []).append((key, share_digest_fn(
+                tag, cert.view, cert.seq_num, cert.pp_digest), cert))
+    for verifier, group in rows.items():
+        verdicts = verifier.verify_batch_certs(
+            [(d, cert.combined_sig) for _, d, cert in group])
+        for (key, _, cert), ok in zip(group, verdicts):
+            if ok:
+                out[key] = Restriction(seq_num=cert.seq_num, view=cert.view,
+                                       pp_digest=cert.pp_digest,
+                                       requests_digest=b"", pre_prepare=b"")
+    return out
+
+
 def compute_restrictions(vc_msgs: List[m.ViewChangeMsg], share_digest_fn,
                          verifier_for_kind,
                          report_quorum: int) -> Dict[int, Restriction]:
@@ -198,6 +229,15 @@ def compute_restrictions(vc_msgs: List[m.ViewChangeMsg], share_digest_fn,
     certs: Dict[int, Restriction] = {}
     # reports[seq][(view, pp_digest)] = (set of reporters, restriction)
     reports: Dict[int, Dict[Tuple[int, bytes], Tuple[set, Restriction]]] = {}
+    # Port divergence (reference view_change.py:213, one verify a
+    # certificate a message): the quorum's certificates are checked
+    # once each and in one aggregated check a verifier, with the same
+    # verdicts. An n=4 quorum's three messages carry the same ones, up
+    # to a checkpoint window each, and a pairing check apiece held the
+    # dispatcher about 3 s a view change on the card (PERF.md §6, PR 17)
+    valid = _validate_certificates(
+        [c for vc in vc_msgs for c in vc.prepared if c.kind != CERT_SIGNED],
+        share_digest_fn, verifier_for_kind)
     for vc in vc_msgs:
         for cert in vc.prepared:
             if cert.kind == CERT_SIGNED:
@@ -210,7 +250,8 @@ def compute_restrictions(vc_msgs: List[m.ViewChangeMsg], share_digest_fn,
                         requests_digest=b"", pre_prepare=b""))
                 slot[key][0].add(vc.sender_id)
                 continue
-            r = validate_certificate(cert, share_digest_fn, verifier_for_kind)
+            r = valid[(cert.kind, cert.view, cert.seq_num, cert.pp_digest,
+                       cert.combined_sig)]
             if r is None:
                 continue
             cur = certs.get(r.seq_num)

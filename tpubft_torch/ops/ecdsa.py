@@ -246,17 +246,39 @@ def prepare_rlc_batch(curve_name: str,
         words_of([a if v else 0 for a, v in zip(coeffs, valid)]), valid)
 
 
+_TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
+                 np.dtype(np.bool_): torch.bool}
+
+
 def to_tensors(arrays: Sequence[np.ndarray], dev: torch.device
                ) -> Tuple[torch.Tensor, ...]:
     """Host kernel inputs -> contiguous tensors on `dev`: the (8, B)
-    uint32 words as int32 (the same bits), the (B,) masks as bool."""
-    out = []
+    uint32 words as int32 (the same bits), the (B,) masks as bool.
+
+    On a card the arrays cross in one copy: packed into one pinned host
+    buffer (each part at a 16-byte offset), copied once, and returned as
+    views of the device copy. One pageable copy an array made a launch
+    nine synchronous copies, and with four replica processes on one card
+    each copy waited on the others' work (PERF.md §6, PR 17)."""
+    parts = []
     for a in arrays:
         a = np.ascontiguousarray(a)
         if a.dtype == np.uint32:
             a = a.view(np.int32)
-        out.append(torch.from_numpy(a).to(dev))
-    return tuple(out)
+        parts.append(a)
+    if dev.type != "cuda":
+        return tuple(torch.from_numpy(a).to(dev) for a in parts)
+    offsets, total = [], 0
+    for a in parts:
+        offsets.append(total)
+        total += -(-a.nbytes // 16) * 16
+    host = torch.empty(max(total, 16), dtype=torch.uint8, pin_memory=True)
+    flat = host.numpy()
+    for a, off in zip(parts, offsets):
+        flat[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+    buf = host.to(dev, non_blocking=True)
+    return tuple(buf[off:off + a.nbytes].view(_TORCH_DTYPES[a.dtype])
+                 .view(a.shape) for a, off in zip(parts, offsets))
 
 
 # ---------------- plain versions ----------------

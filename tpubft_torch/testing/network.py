@@ -22,8 +22,10 @@ Port divergences (reference network.py:70-491):
   exits with that code, and `start_all` then retries once on a new base.
 - Replicas run without `--fault-port` and `--trs-port`; the per-link
   faults (A.9.6), `start_ro_replica` (A.9.4) and `operator_client`
-  (A.9.4) raise NotImplementedError, as do `db_dir` (A.9.2) and the TLS
-  transports (A.9.1b).
+  (A.9.4) raise NotImplementedError, as does `db_dir` (A.9.2).
+- The TLS transports keep their material in a temporary directory that
+  the network owns (the reference keeps it under `db_dir/tls`), written
+  again when a stopped network starts.
 """
 from __future__ import annotations
 
@@ -31,10 +33,12 @@ import errno
 import json
 import os
 import random
+import shutil
 import signal
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 import weakref
 from typing import Dict, List, Optional
@@ -114,11 +118,12 @@ def ports_free(ports) -> bool:
 
 def build_libraries(device: str) -> Dict[str, float]:
     """Build, once in this process, every library a replica process
-    loads: the UDP transport's netio with g++, and for "cuda" the kernel
-    libraries with nvcc (one thread each) and the native BLS engine.
-    -> {library: seconds}. A failed kernel build raises; netio may be
-    missing (the transport then runs its scalar path, counted in
-    comm/udp.FALLBACKS)."""
+    loads: the UDP transport's netio and the secrets manager's AES
+    (native/aescbc.cpp, which the TLS keys' PBES2 uses) with g++, and for
+    "cuda" the kernel libraries with nvcc (one thread each) and the
+    native BLS engine. -> {library: seconds}. A failed kernel or aescbc
+    build raises; netio may be missing (the transport then runs its
+    scalar path, counted in comm/udp.FALLBACKS)."""
     from tpubft_torch.ops import _build
 
     def netio():
@@ -126,7 +131,7 @@ def build_libraries(device: str) -> Dict[str, float]:
             _build.load_host("netio")
         except _build.BuildError:
             pass
-    libs = {"netio": netio}
+    libs = {"netio": netio, "aescbc": lambda: _build.load_host("aescbc")}
     if device != "cpu":
         from tpubft_torch.crypto import bls_native
         from tpubft_torch.ops import (bls12_381_cuda, ecdsa_cuda,
@@ -160,9 +165,6 @@ class BftTestNetwork:
                  log_dir: Optional[str] = None) -> None:
         if db_dir is not None:
             _not_ported("BftTestNetwork(db_dir=...)", "A.9.2")
-        if transport in ("tls", "tls-mux"):
-            _not_ported(f"BftTestNetwork(transport={transport!r})",
-                        "A.9.1b")
         if pre_execution:
             _not_ported("BftTestNetwork(pre_execution=True)", "A.9.4")
         self.f, self.c = f, c
@@ -189,6 +191,12 @@ class BftTestNetwork:
         # per-replica log files (replica-<r>.log, appended across
         # restarts); None sends the replicas' output to /dev/null
         self.log_dir = log_dir
+        # TLS material (see _tls_material); the directories this network
+        # made, removed by stop_all and by the finalizer
+        self.certs_dir: Optional[str] = None
+        self._tmp_dirs: List[str] = []
+        if transport in ("tls", "tls-mux"):
+            self._tls_material()
         self.build_s: Dict[str, float] = {}
         self.start_s: Dict[int, float] = {}
         self._spawned_at: Dict[int, float] = {}
@@ -203,7 +211,8 @@ class BftTestNetwork:
         # reference to self (it would never fire), so it closes over the
         # mutable dicts only.
         self._finalizer = weakref.finalize(
-            self, BftTestNetwork._reap_procs, self.procs, self.paused)
+            self, BftTestNetwork._reap_procs, self.procs, self.paused,
+            self._tmp_dirs)
 
     # ------------------------------------------------------------------
     # ports
@@ -235,10 +244,30 @@ class BftTestNetwork:
         from tpubft_torch.consensus.replicas_info import ReplicasInfo
         return ReplicasInfo.from_config(self._node_cfg()).operator_id
 
+    def _tls_material(self) -> str:
+        """Pinned-cert material for every principal (replicas, clients,
+        operator), like keygen --tls-certs, in a temporary directory of
+        this network's. Port divergence (reference network.py:108-122):
+        the reference asserts `db_dir` and writes under `db_dir/tls`; the
+        port refuses `db_dir` until A.9.2, so the network owns the
+        directory and stop_all removes it. The ids are the endpoints'
+        (clients from n + num_ro on, the reference's from n: the same
+        without read-only replicas)."""
+        if self.certs_dir is None:
+            from tpubft_torch.comm.tls import generate_tls_material
+            first_client = self.n + self.num_ro
+            ids = (list(range(first_client + self.num_clients))
+                   + [self._operator_id()])
+            self.certs_dir = tempfile.mkdtemp(prefix="bft-tls-")
+            self._tmp_dirs.append(self.certs_dir)
+            generate_tls_material(self.certs_dir, ids, seed=None)
+        return self.certs_dir
+
     @staticmethod
     def _reap_procs(procs: Dict[int, subprocess.Popen],
-                    paused: set) -> None:
-        """Last-resort reaper: SIGCONT anything stopped, SIGKILL, reap.
+                    paused: set, tmp_dirs: List[str]) -> None:
+        """Last-resort reaper: SIGCONT anything stopped, SIGKILL, reap;
+        then remove the network's temporary directories.
         (SIGKILL does kill a stopped process, but the SIGCONT keeps the
         behavior uniform with stop_all's graceful path and unsticks any
         descendant blocked on the stopped parent.)"""
@@ -256,6 +285,9 @@ class BftTestNetwork:
             except (subprocess.TimeoutExpired, OSError):
                 pass
         paused.clear()
+        for d in tmp_dirs:
+            shutil.rmtree(d, ignore_errors=True)
+        tmp_dirs.clear()
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -306,6 +338,8 @@ class BftTestNetwork:
                 "--threshold-scheme", self.threshold_scheme,
                 "--client-sig-scheme", self.client_sig_scheme,
                 "--transport", self.transport] + (extra_args or [])
+        if self.transport in ("tls", "tls-mux"):
+            args += ["--certs-dir", self._tls_material()]
         if self.device_min_verify_batch is not None:
             args += ["--device-min-verify-batch",
                      str(self.device_min_verify_batch)]
@@ -354,6 +388,10 @@ class BftTestNetwork:
             except Exception:  # noqa: BLE001 — teardown must not raise
                 pass
         self._clients.clear()
+        for d in self._tmp_dirs:
+            shutil.rmtree(d, ignore_errors=True)
+        self._tmp_dirs.clear()
+        self.certs_dir = None
 
     # ------------------------------------------------------------------
     # fault injection (Apollo kill/restart + partition analogs)
@@ -473,6 +511,15 @@ class BftTestNetwork:
                              client_sig_scheme=self.client_sig_scheme)
 
     def _make_comm(self, node_id: int, eps):
+        if self.transport in ("tls", "tls-mux"):
+            from tpubft_torch.comm.multiplex import client_floor
+            from tpubft_torch.comm.tls import TlsConfig
+            floor = (client_floor(self.n, self.num_ro)
+                     if self.transport == "tls-mux" else None)
+            return create_communication(
+                TlsConfig(self_id=node_id, endpoints=eps,
+                          certs_dir=self._tls_material(),
+                          mux_client_floor=floor), self.transport)
         return create_communication(CommConfig(self_id=node_id,
                                                endpoints=eps),
                                     self.transport)
