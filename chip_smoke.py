@@ -9,7 +9,7 @@ source, all started together) and runs these phases in order, one JSON
 line each; any failure exits non-zero:
 
   device   the card's name, power limit and SM clock, the builds (the
-           native BLS engine and netio with g++ among them), each BLS kernel's
+           native BLS engine, netio and kvlog with g++ among them), each BLS kernel's
            registers, stack and spill from ptxas (`bls_msm_ptxas`), and
            from
            the SHA-256 kernel's SASS (cuobjdump) the opcodes of its longest
@@ -145,6 +145,31 @@ line each; any failure exits non-zero:
            requests/s, commit latency p50/p90/p99, each storm cycle
            (view, primary, writes committed), each process's view and
            launches, each step's seconds;
+  persistent_cluster
+           config 1 as BASELINE.md's process rows deploy it, on
+           persistent ledgers: four `skvbc_replica` processes from
+           testing.BftTestNetwork(db_dir=...) on the card over UDP, each
+           with its own kvlog (the port's NativeDB over native/kvlog.cpp)
+           in a temporary directory, ReplicaConfig()'s defaults but
+           device_min_verify_batch 4 (as process_cluster), 16 closed-loop
+           SkvbcClients. Prints the DB directory's filesystem type and
+           4 KiB write + fsync probes there; 600 writes commit and 120
+           acknowledged keys read back; replica 3 is SIGKILLed, the load
+           goes on until the others' stable checkpoint is more than the
+           work window past it, and it restarts on its own file under
+           the load: its first metrics read must be its last_executed
+           from before the kill, it catches up by state transfer (SHA-256
+           section calls) fetching no block it kept, and the four agree;
+           then all four are SIGKILLed at once and restarted on their
+           files: each comes back at its last_executed, the sampled keys
+           and every client's last write read back, 200 more writes
+           commit; after stop_all every kvlog opens under the port's
+           blockchain holding exactly the acknowledged writes, blocks
+           equal raw bytes in the four files. Every process: signatures
+           dispatched to the card, nothing degraded, healthy, no netio
+           fallback. Printed beside process_cluster's in-memory rate: the
+           load's rate and latency, each restart's seconds to up, the
+           catch-up, the file sizes;
   bls_plane
            BLS certificates on the card: config 2's keys (n=7 f=2 c=0,
            threshold-bls, threshold 5) and 64 slots through
@@ -267,7 +292,7 @@ line each; any failure exits non-zero:
            B=1024;
   kernels  every kernel with its launches on its path (the plane, the
            two in-process clusters and the replica processes of configs
-           1 and 5, the ladder,
+           1 and 5 and of config 1 on persistent ledgers, the ladder,
            the ledger replica's and the restarted replica process's
            catch-ups and the state-transfer digests; the verify and
            SHA-256 rows split them by path), its match against the plain
@@ -437,8 +462,10 @@ def build_all() -> dict:
         "fe_inv": bringup_cuda.fe_inv_library,
         "bls12_381_msm": bls12_381_cuda.library,
         "ecdsa": ecdsa_cuda.library, "bls12381_native": native,
-        # the UDP transport's sendmmsg/recvmmsg library, g++
-        "netio": lambda: _build.load_host("netio")})
+        # the UDP transport's sendmmsg/recvmmsg library and the storage
+        # engine that --db-dir opens, g++
+        "netio": lambda: _build.load_host("netio"),
+        "kvlog": lambda: _build.load_host("kvlog")})
 
 
 def work_bound_ms(ops: int, nbytes: int, sm_clock_mhz: float) -> dict:
@@ -1593,6 +1620,204 @@ def _replica_report(net, r: int) -> dict:
             "breakers", {}).items() if b.get("state") != "closed")}
 
 
+def _read_back(kvs, writes, keys, timeout_ms: int = 30000) -> list:
+    """Read `keys` back, ten a read, over the clients in turn -> the keys
+    whose value is not the one last acknowledged."""
+    got = {}
+    for i in range(0, len(keys), 10):
+        got.update(kvs[i // 10 % len(kvs)].read(keys[i:i + 10],
+                                                 timeout_ms=timeout_ms))
+    return [k for k in keys if got.get(k) != writes.acked[k]]
+
+
+def _sampled_keys(writes, reads: int, seed: int) -> list:
+    """`reads` of the acknowledged keys, chosen by `seed`."""
+    import numpy as np
+    keys = sorted(writes.acked)
+    rng = np.random.default_rng(seed)
+    return [keys[i] for i in rng.choice(len(keys), size=min(
+        reads, len(keys)), replace=False)]
+
+
+class _ProcessCluster:
+    """The steps the process cluster phases share, over a
+    testing.BftTestNetwork of replica processes on the card and
+    `clients` closed-loop kvbcbench SkvbcClients in this process. Each
+    step records its numbers in `out` under `phase`'s lines; a step
+    whose load fails raises, and checks that can wait until the end go
+    to `problems`."""
+
+    def __init__(self, phase: str, net, clients: int, out: dict):
+        self.phase, self.net, self.out = phase, net, out
+        self.clients = clients
+        self.problems = []
+
+    def start(self) -> None:
+        """Build every library a replica loads once in this process
+        (netio must load), start the replica processes, and make the
+        clients and their closed loop."""
+        from tpubft_torch import testing
+        from tpubft_torch.comm import udp
+        from tpubft_torch.testing.network import build_libraries
+        out, net = self.out, self.net
+        self.fallbacks0 = udp.FALLBACKS.value
+        t0 = time.monotonic()
+        out["build_s"] = build_libraries("cuda")
+        out["build_wall_s"] = time.monotonic() - t0
+        if udp._load_netio() is None:
+            raise AssertionError(f"netio did not load: {udp.load_error}")
+        t0 = time.monotonic()
+        net.start_all(timeout=120)
+        out["start_wall_s"] = time.monotonic() - t0
+        out["start_s"] = dict(net.start_s)
+        emit({"phase": self.phase, "step": "up",
+              **{k: out[k] for k in ("build_s", "build_wall_s",
+                                     "start_wall_s", "start_s")}})
+        self.kvs = [net.skvbc_client(i) for i in range(self.clients)]
+        self.writes = _KvbcbenchWrites(self.kvs, testing.kvbcbench_rows(64),
+                                       timeout_ms=30000)
+        self.loop = _ClosedLoop(self.clients, self.writes)
+
+    def read_back(self, keys) -> list:
+        return _read_back(self.kvs, self.writes, keys)
+
+    def load(self, target: int, reads: int, seed: int,
+             budget_s: float) -> list:
+        """Load until `target` writes commit (`out["load"]`), read back
+        `reads` acknowledged keys chosen by `seed` (`out["read_back"]`)
+        and wait for the four last_executed to agree; raises if any of
+        it fails. -> the agreed last_executed."""
+        load = self.loop.run(lambda n: n >= target, budget_s=budget_s)
+        self.out["load"] = load
+        emit({"phase": self.phase, "step": "load", **load})
+        if self.loop.errors or load["committed"] < target:
+            raise AssertionError(f"load: {load['committed']} of {target} "
+                                 f"writes committed, {self.loop.errors[:3]}")
+        self.sample = _sampled_keys(self.writes, reads, seed)
+        wrong = self.read_back(self.sample)
+        self.out["read_back"] = {"keys": len(self.sample),
+                                 "wrong": len(wrong)}
+        if len(self.sample) < reads or wrong:
+            raise AssertionError(f"read-back: {len(wrong)} of "
+                                 f"{len(self.sample)} keys wrong")
+        return _equal_last_executed(self.net, range(self.net.n), timeout=30)
+
+    def kill_behind(self, r: int, min_stable: int, min_writes: int,
+                    budget_s: float) -> dict:
+        """SIGKILL replica r and load the others until `min_writes` more
+        writes commit and their stable checkpoint reaches `min_stable`
+        (`out["behind"]`, with the stable checkpoint last read); raises
+        if the load fails."""
+        net, loop = self.net, self.loop
+        net.kill_replica(r)
+        up = [x for x in range(net.n) if x != r]
+        seen = [0]
+
+        def stable_past():
+            st = [net.metrics(x).get("replica", "gauges",
+                                     "last_stable_seq") for x in up]
+            if None in st:
+                return False
+            seen[0] = min(st)
+            return seen[0] >= min_stable
+        past = _Every(stable_past)
+        behind = loop.run(lambda n: n >= min_writes and past(),
+                          budget_s=budget_s)
+        behind["stable"] = seen[0]
+        self.out["behind"] = behind
+        emit({"phase": self.phase, "step": "behind", **behind})
+        if loop.errors or behind["timed_out"]:
+            raise AssertionError(f"second load: {behind['committed']} "
+                                 f"writes, stable {seen[0]}, "
+                                 f"{loop.errors[:3]}")
+        return behind
+
+    def restart_under_load(self, r: int, min_fetched: int, min_seq: int,
+                           budget_s: float) -> dict:
+        """Start replica r again (on its own file where the network has a
+        `db_dir`, else empty) while the load goes on in a thread, until
+        it has fetched `min_fetched` blocks by state transfer and
+        executed up to `min_seq`; then wait for the four last_executed
+        to agree. -> the load's numbers, the last_executed of r's first
+        metrics answer and the seconds to it, the catch-up seconds and
+        the agreed last_executed. A load that fails is a problem."""
+        import threading
+        net, loop = self.net, self.loop
+
+        def caught_up():
+            m = net.metrics(r)
+            got = m.get("state_transfer", "counters", "blocks_fetched",
+                        timeout=0.3)
+            le = m.get("replica", "gauges", "last_executed_seq",
+                       timeout=0.3)
+            return (got or 0) >= min_fetched and (le or 0) >= min_seq
+        during = {}
+        thread = threading.Thread(target=lambda: during.update(loop.run(
+            _Every(caught_up), budget_s=budget_s)))
+        t0 = time.monotonic()
+        thread.start()
+        try:
+            net.start_replica(r)
+            first_le, up_s = net.first_answer(r)
+        finally:
+            thread.join()
+        le = _equal_last_executed(net, range(net.n), timeout=60)
+        if loop.errors or during.get("timed_out", True):
+            self.problems.append(f"catch-up: {loop.errors[:3]}, {during}")
+        return {"load_during": during, "first_read_last_executed": first_le,
+                "up_s": up_s, "catch_up_s": time.monotonic() - t0,
+                "last_executed": le}
+
+    def check_processes(self, reports: dict, earlier=()) -> None:
+        """Every process in `reports` (_replica_report): signatures
+        dispatched to the device, no verify degraded, health healthy with
+        every breaker closed, a verify device section, no netio fallback.
+        The verify and SHA-256 launches are summed over `reports` and
+        the `earlier` reports of processes since killed, and must be
+        above 0."""
+        problems = self.problems
+        for r, rep in reports.items():
+            if not rep["sigs_device_dispatched"]:
+                problems.append(f"replica {r}: no signature reached the "
+                                "device")
+            if rep["degraded_verifies"]:
+                problems.append(f"replica {r}: {rep['degraded_verifies']} "
+                                "verifies degraded")
+            if rep["health"] != "healthy" or rep["open_breakers"]:
+                problems.append(f"replica {r}: health {rep['health']}, "
+                                f"open breakers {rep['open_breakers']}")
+            if not rep["section_calls"].get("ed25519"):
+                problems.append(f"replica {r}: no verify device section")
+            if rep["netio_fallbacks"] != 0:
+                problems.append(f"replica {r}: {rep['netio_fallbacks']} "
+                                "netio fallbacks")
+        procs = list(earlier) + list(reports.values())
+        out = self.out
+        out["verify_launches"] = sum(p["launches"].get("ed25519_verify", 0)
+                                     for p in procs)
+        out["sha256_launches"] = sum(p["launches"].get("sha256", 0)
+                                     for p in procs)
+        if out["verify_launches"] < 1 or out["sha256_launches"] < 1:
+            problems.append(f"launches: verify {out['verify_launches']}, "
+                            f"sha256 {out['sha256_launches']}")
+
+    def finish(self, t_phase: float) -> dict:
+        """After stop_all: this process's UDP transports must not have
+        fallen back to the scalar path. Prints `out`; raises with every
+        problem."""
+        from tpubft_torch.comm import udp
+        out = self.out
+        out["netio_fallbacks_parent"] = udp.FALLBACKS.value - self.fallbacks0
+        if out["netio_fallbacks_parent"]:
+            self.problems.append("this process's UDP transports fell back "
+                                 "to the scalar path")
+        out["wall_s"] = time.monotonic() - t_phase
+        emit(out)
+        if self.problems:
+            raise AssertionError("; ".join(self.problems))
+        return out
+
+
 def phase_process_cluster(torch, dev, ledger_replica: dict,
                           clients: int = 32, target: int = 1000,
                           reads: int = 120, behind: int = 300,
@@ -1631,153 +1856,51 @@ def phase_process_cluster(torch, dev, ledger_replica: dict,
     import shutil
     import tempfile
 
-    import numpy as np
-
-    from tpubft_torch import testing
-    from tpubft_torch.comm import udp
-    from tpubft_torch.testing.network import BftTestNetwork, build_libraries
+    from tpubft_torch.testing.network import BftTestNetwork
 
     t_phase = time.monotonic()
     log_dir = tempfile.mkdtemp(prefix="chip-smoke-procs-")
     net = BftTestNetwork(f=1, num_clients=clients, seed="chip-smoke-procs",
                          device="cuda", log_dir=log_dir,
                          device_min_verify_batch=device_min_verify_batch)
-    problems = []
     out = {"phase": "process_cluster", "n": net.n, "f": 1,
            "clients": clients, "transport": net.transport,
            "crypto_backend": net.crypto_backend,
            "checkpoint_window": net.checkpoint_window,
            "work_window": net.work_window,
            "device_min_verify_batch": device_min_verify_batch}
-    fallbacks0 = udp.FALLBACKS.value
+    cl = _ProcessCluster("process_cluster", net, clients, out)
     try:
-        t0 = time.monotonic()
-        out["build_s"] = build_libraries("cuda")
-        out["build_wall_s"] = time.monotonic() - t0
-        if udp._load_netio() is None:
-            raise AssertionError(f"netio did not load: {udp.load_error}")
-        t0 = time.monotonic()
-        net.start_all(timeout=120)
-        out["start_wall_s"] = time.monotonic() - t0
-        out["start_s"] = dict(net.start_s)
-        emit({"phase": "process_cluster", "step": "up",
-              **{k: out[k] for k in ("build_s", "build_wall_s",
-                                     "start_wall_s", "start_s")}})
-        kvs = [net.skvbc_client(i) for i in range(clients)]
-        writes = _KvbcbenchWrites(kvs, testing.kvbcbench_rows(64),
-                                  timeout_ms=30000)
-        loop = _ClosedLoop(clients, writes)
-
-        # ---- load ----
-        load = loop.run(lambda n: n >= target, budget_s=budget_s / 3)
-        out["load"] = load
-        emit({"phase": "process_cluster", "step": "load", **load})
-        if loop.errors or load["committed"] < target:
-            raise AssertionError(f"load: {load['committed']} of {target} "
-                                 f"writes committed, {loop.errors[:3]}")
-
-        # ---- read-back ----
-        rng = np.random.default_rng(9)
-        keys = sorted(writes.acked)
-        sample = [keys[i] for i in rng.choice(len(keys), size=min(
-            reads, len(keys)), replace=False)]
-        got = {}
-        for i in range(0, len(sample), 10):
-            got.update(kvs[i // 10 % clients].read(sample[i:i + 10],
-                                                    timeout_ms=30000))
-        wrong = [k for k in sample if got.get(k) != writes.acked[k]]
-        out["read_back"] = {"keys": len(sample), "wrong": len(wrong)}
-        if len(sample) < reads or wrong:
-            raise AssertionError(f"read-back: {len(wrong)} of "
-                                 f"{len(sample)} keys wrong")
-        le = _equal_last_executed(net, range(net.n), timeout=30)
-        out["last_executed_after_load"] = le
+        cl.start()
+        out["last_executed_after_load"] = cl.load(
+            target, reads, seed=9, budget_s=budget_s / 3)
         # replica 3's counts die with it: read them first
         before_kill = _replica_report(net, 3)
-
-        # ---- replica 3 down ----
-        net.kill_replica(3)
-        up = (0, 1, 2)
-
-        def stable_past():
-            st = [net.metrics(r).get("replica", "gauges",
-                                     "last_stable_seq") for r in up]
-            return None not in st and min(st) >= net.work_window
-        past = _Every(stable_past)
-        down = loop.run(lambda n: n >= behind and past(),
-                        budget_s=budget_s / 3)
-        out["behind"] = down
-        emit({"phase": "process_cluster", "step": "behind", **down})
-        if loop.errors or down["timed_out"]:
-            raise AssertionError(f"second load: {down['committed']} "
-                                 f"writes, {loop.errors[:3]}")
-
-        # ---- restart with empty state, catch up under load ----
-        t_restart = time.monotonic()
-        net.start_replica(3)
-
-        def fetched():
-            m = net.metrics(3)
-            got = m.get("state_transfer", "counters", "blocks_fetched",
-                        timeout=0.3)
-            le3 = m.get("replica", "gauges", "last_executed_seq",
-                        timeout=0.3)
-            return (got or 0) >= min_fetched and (le3 or 0) >= net.work_window
-        during = loop.run(_Every(fetched), budget_s=budget_s / 3)
-        net.wait_for_replicas_up(timeout=5, replicas=[3])
-        le = _equal_last_executed(net, range(net.n), timeout=60)
-        catch_up_s = time.monotonic() - t_restart
+        cl.kill_behind(3, min_stable=net.work_window, min_writes=behind,
+                       budget_s=budget_s / 3)
+        catch_up = cl.restart_under_load(3, min_fetched=min_fetched,
+                                         min_seq=net.work_window,
+                                         budget_s=budget_s / 3)
         reports = {r: _replica_report(net, r) for r in range(net.n)}
-        out["catch_up"] = {"load_during": during, "catch_up_s": catch_up_s,
-                           "restart_start_s": net.start_s.get(3),
-                           "blocks_fetched": reports[3]["blocks_fetched"],
-                           "device_digest_windows":
-                               reports[3]["device_digest_batches"],
-                           "last_executed": le}
-        emit({"phase": "process_cluster", "step": "catch_up",
-              **out["catch_up"]})
-        if loop.errors or during["timed_out"]:
-            problems.append(f"catch-up: {loop.errors[:3]}, replica 3 "
-                            f"{reports[3]}")
+        catch_up.update(restart_start_s=catch_up.pop("up_s"),
+                        blocks_fetched=reports[3]["blocks_fetched"],
+                        device_digest_windows=reports[3][
+                            "device_digest_batches"])
+        out["catch_up"] = catch_up
+        emit({"phase": "process_cluster", "step": "catch_up", **catch_up})
         out["replica3_before_kill"] = before_kill
         out["replicas"] = reports
-
-        # ---- what each process ran ----
-        for r, rep in reports.items():
-            if not rep["sigs_device_dispatched"]:
-                problems.append(f"replica {r}: no signature reached the "
-                                "device")
-            if rep["degraded_verifies"]:
-                problems.append(f"replica {r}: {rep['degraded_verifies']} "
-                                "verifies degraded")
-            if rep["health"] != "healthy" or rep["open_breakers"]:
-                problems.append(f"replica {r}: health {rep['health']}, "
-                                f"open breakers {rep['open_breakers']}")
-            if not rep["section_calls"].get("ed25519"):
-                problems.append(f"replica {r}: no verify device section")
-            if rep["netio_fallbacks"] != 0:
-                problems.append(f"replica {r}: {rep['netio_fallbacks']} "
-                                "netio fallbacks")
+        cl.check_processes(reports, earlier=[before_kill])
         if not reports[3]["section_calls"].get("sha256"):
-            problems.append("the restarted replica ran no SHA-256 section")
+            cl.problems.append("the restarted replica ran no SHA-256 "
+                               "section")
         if (reports[3]["blocks_fetched"] or 0) < min_fetched:
-            problems.append(f"replica 3 fetched {reports[3]['blocks_fetched']}"
-                            f" blocks, fewer than {min_fetched}")
-        procs = [before_kill] + list(reports.values())
-        out["verify_launches"] = sum(p["launches"].get("ed25519_verify", 0)
-                                     for p in procs)
-        out["sha256_launches"] = sum(p["launches"].get("sha256", 0)
-                                     for p in procs)
-        if out["verify_launches"] < 1 or out["sha256_launches"] < 1:
-            problems.append(f"launches: verify {out['verify_launches']}, "
-                            f"sha256 {out['sha256_launches']}")
+            cl.problems.append(f"replica 3 fetched "
+                               f"{reports[3]['blocks_fetched']} blocks, "
+                               f"fewer than {min_fetched}")
     finally:
         net.stop_all()
         shutil.rmtree(log_dir, ignore_errors=True)
-    out["netio_fallbacks_parent"] = udp.FALLBACKS.value - fallbacks0
-    if out["netio_fallbacks_parent"]:
-        problems.append("this process's UDP transports fell back to the "
-                        "scalar path")
     inproc = ledger_replica["load"]
     out["beside_in_process"] = {
         "process_requests_per_s": out["load"]["requests_per_s"],
@@ -1785,11 +1908,7 @@ def phase_process_cluster(torch, dev, ledger_replica: dict,
         "in_process_requests_per_s": inproc["requests_per_s"],
         "in_process_commit_latency_ms": inproc["commit_latency_ms"],
         "in_process_clients": ledger_replica["config"]["clients"]}
-    out["wall_s"] = time.monotonic() - t_phase
-    emit(out)
-    if problems:
-        raise AssertionError("; ".join(problems))
-    return out
+    return cl.finish(t_phase)
 
 
 _BLOCK_CRYPTOGRAPHY = """
@@ -2012,8 +2131,6 @@ def phase_tls_cluster(torch, dev, clients: int = 16, load_s: float = 60.0,
     import ssl
     import tempfile
 
-    import numpy as np
-
     from tpubft_torch import testing
     from tpubft_torch.testing.network import BftTestNetwork, build_libraries
 
@@ -2091,15 +2208,8 @@ def phase_tls_cluster(torch, dev, clients: int = 16, load_s: float = 60.0,
 
         # ---- read-back, agreement ----
         t0 = time.monotonic()
-        rng = np.random.default_rng(5)
-        keys = sorted(writes.acked)
-        sample = [keys[i] for i in rng.choice(len(keys), size=min(
-            reads, len(keys)), replace=False)]
-        got = {}
-        for i in range(0, len(sample), 10):
-            got.update(kvs[i // 10 % clients].read(sample[i:i + 10],
-                                                    timeout_ms=60000))
-        wrong = [k for k in sample if got.get(k) != writes.acked[k]]
+        sample = _sampled_keys(writes, reads, seed=5)
+        wrong = _read_back(kvs, writes, sample, timeout_ms=60000)
         out["read_back"] = {"keys": len(sample), "wrong": len(wrong)}
         if len(sample) < reads or wrong:
             problems.append(f"read-back: {len(wrong)} of {len(sample)} "
@@ -2150,6 +2260,256 @@ def phase_tls_cluster(torch, dev, clients: int = 16, load_s: float = 60.0,
     if problems:
         raise AssertionError("; ".join(problems))
     return out
+
+
+def _fs_type(path: str) -> dict:
+    """The filesystem that holds `path`: the longest mount point of
+    /proc/mounts above its real path, with its type and device."""
+    real = os.path.realpath(path)
+    best = {"mount": None, "type": None, "device": None}
+    with open("/proc/mounts") as f:
+        for line in f:
+            dev, mnt, fstype = line.split()[:3]
+            mnt = mnt.replace("\\040", " ")
+            if (real == mnt or real.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) >= len(best["mount"] or ""):
+                best = {"mount": mnt, "type": fstype, "device": dev}
+    return best
+
+
+def _fsync_probe_ms(path: str, reps: int = 5) -> list:
+    """`reps` times: one 4 KiB os.write and os.fsync of a new file in
+    directory `path` -> the ms each took (on tmpfs an fsync costs
+    nothing)."""
+    out = []
+    for i in range(reps):
+        name = os.path.join(path, f"fsync-probe-{i}")
+        fd = os.open(name, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+        try:
+            t0 = time.perf_counter()
+            os.write(fd, b"\xa5" * 4096)
+            os.fsync(fd)
+            out.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            os.close(fd)
+            os.unlink(name)
+    return out
+
+
+def phase_persistent_cluster(torch, dev, process_cluster=None,
+                             clients: int = 16, target: int = 600,
+                             reads: int = 120, more: int = 200,
+                             device_min_verify_batch: int = 4,
+                             checkpoint_window: int = 150,
+                             work_window: int = 300,
+                             budget_s: float = 150.0) -> dict:
+    """Config 1 as BASELINE.md's process rows deploy it, on persistent
+    ledgers (benchmarks/bench_e2e.py:284-287 runs them with db_dir): four
+    replica OS processes over UDP from testing.BftTestNetwork(db_dir=...)
+    on the card, each with its own kvlog (replica-<id>.kvlog, the port's
+    NativeDB over native/kvlog.cpp) in a temporary directory, every
+    setting at ReplicaConfig()'s defaults (db_sync_writes off, the
+    consensus-metadata families fsynced) but `device_min_verify_batch`
+    4, as process_cluster and for its reason. `clients` closed-loop
+    SkvbcClients in this process write kvbcbench blocks.
+
+    1. Where the files live: the DB directory's filesystem type
+       (/proc/mounts) and the ms of 4 KiB write + fsync probes there.
+    2. Load until `target` writes commit; `reads` acknowledged keys
+       chosen by the seed read back; the four last_executed agree.
+    3. Replica 3 is SIGKILLed; the load goes on until the others'
+       stable checkpoint is more than the work window past replica 3's
+       last_executed; replica 3 restarts on its own file while the load
+       goes on. Its first metrics read must be its last_executed from
+       before the kill (not 0); it catches up by state transfer (its
+       SHA-256 section has calls); it fetches no block it kept: at
+       most the blocks committed since the kill (within the gap plus
+       one checkpoint window, and well below the others' height, which
+       an empty restart would fetch); the four last_executed agree.
+    4. The load stops; all four processes are SIGKILLed at once and
+       restarted on their files: each first reads back its
+       last_executed from before; every sampled acknowledged key and
+       the last acknowledged write of every client read back; `more`
+       writes commit; the four last_executed agree.
+    5. After stop_all this process opens each kvlog file with the port's
+       NativeDB under the port's blockchain (testing.network.
+       ledger_files): every ledger holds exactly the acknowledged writes
+       and blocks 1..min(last block id) are equal raw bytes in the four
+       files.
+    6. From every process (metrics and diagnostics servers), as
+       process_cluster reads them: signatures dispatched to the device,
+       no degraded verify, health healthy with every breaker closed, a
+       verify device section, no netio fallback, each wrapper's
+       launches and the CUDA memory it holds.
+
+    Printed beside process_cluster's in-memory rate (same run): the
+    first load's rate and latency, each restart's seconds to up,
+    replica 3's recovered last_executed, blocks fetched and catch-up
+    seconds, and the file sizes. The verify and SHA-256 launches are
+    summed over every process before each kill and at the end."""
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from tpubft_torch.testing.network import BftTestNetwork, ledger_files
+
+    t_phase = time.monotonic()
+    db_dir = tempfile.mkdtemp(prefix="chip-smoke-persist-")
+    try:
+        out = {"phase": "persistent_cluster", "n": 4, "f": 1,
+               "clients": clients, "transport": "udp",
+               "checkpoint_window": checkpoint_window,
+               "work_window": work_window,
+               "device_min_verify_batch": device_min_verify_batch,
+               "db_fs": _fs_type(db_dir),
+               "fsync_probe_ms": _fsync_probe_ms(db_dir)}
+        emit({"phase": "persistent_cluster", "step": "files",
+              "db_fs": out["db_fs"],
+              "fsync_probe_ms": out["fsync_probe_ms"]})
+        log_dir = os.path.join(db_dir, "logs")
+        net = BftTestNetwork(f=1, num_clients=clients,
+                             seed="chip-smoke-persist", device="cuda",
+                             db_dir=db_dir, log_dir=log_dir,
+                             checkpoint_window=checkpoint_window,
+                             work_window=work_window,
+                             device_min_verify_batch=device_min_verify_batch)
+        cl = _ProcessCluster("persistent_cluster", net, clients, out)
+        problems, earlier = cl.problems, []
+        steps = out["steps_s"] = {}
+        try:
+            t0 = time.monotonic()
+            cl.start()
+            steps["start"] = time.monotonic() - t0
+
+            # ---- 2. load, read-back ----
+            t0 = time.monotonic()
+            le = cl.load(target, reads, seed=13, budget_s=budget_s * 0.15)
+            steps["load"] = time.monotonic() - t0
+            writes = cl.writes
+            blocks_at_kill = sum(writes.next_write)
+            earlier.append(_replica_report(net, 3))   # its counts die with it
+
+            # ---- 3. replica 3 crashes, restarts on its own file ----
+            t0 = time.monotonic()
+            behind = cl.kill_behind(3, min_stable=le[3] + net.work_window + 1,
+                                    min_writes=0, budget_s=budget_s * 0.4)
+            steps["behind"] = time.monotonic() - t0
+            one = cl.restart_under_load(3, min_fetched=1,
+                                        min_seq=behind["stable"],
+                                        budget_s=budget_s * 0.3)
+            steps["restart_one"] = one["catch_up_s"]
+            rep3 = _replica_report(net, 3)
+            height = sum(writes.next_write)
+            fetched = rep3["blocks_fetched"] or 0
+            # writes per sequence number so far: one checkpoint window's
+            # blocks
+            window_blocks = int(np.ceil(checkpoint_window * height
+                                        / max(1, one["last_executed"][0])))
+            one.update(last_executed_before_kill=le[3],
+                       blocks_fetched=fetched, blocks_at_kill=blocks_at_kill,
+                       height_after=height, gap_blocks=height - blocks_at_kill,
+                       window_blocks=window_blocks,
+                       device_digest_windows=rep3["device_digest_batches"],
+                       sha256_section_calls=rep3["section_calls"].get(
+                           "sha256"))
+            out["restart_one"] = one
+            emit({"phase": "persistent_cluster", "step": "restart_one",
+                  **one})
+            first_le = one["first_read_last_executed"]
+            if first_le != le[3] or not first_le:
+                problems.append(f"replica 3 came back at last_executed "
+                                f"{first_le}, not its {le[3]}")
+            if not rep3["section_calls"].get("sha256"):
+                problems.append("replica 3 ran no SHA-256 section")
+            # it links onto the chain it kept: at most the blocks committed
+            # since the kill (within the gap plus a window, and well below
+            # the others' height, which an empty restart would fetch)
+            if not 0 < fetched <= height - blocks_at_kill:
+                problems.append(f"replica 3 fetched {fetched} blocks: the "
+                                f"gap was {height - blocks_at_kill} of "
+                                f"{height}")
+
+            # ---- 4. the whole cluster crashes ----
+            t0 = time.monotonic()
+            earlier += [_replica_report(net, r) for r in range(4)]
+            le_before = _equal_last_executed(net, range(4), timeout=30)
+            for p in net.procs.values():
+                p.send_signal(signal.SIGKILL)
+            for r in range(4):
+                net.kill_replica(r)
+            for r in range(4):
+                net.start_replica(r)
+            firsts = {r: net.first_answer(r) for r in range(4)}
+            steps["restart_all"] = time.monotonic() - t0
+            lasts = [b"c%03d/" % i + key for i in range(clients)
+                     if writes.next_write[i]
+                     for _c, key, _v, _t in writes.rows[
+                         (writes.next_write[i] - 1) % len(writes.rows)]]
+            wrong_sample = cl.read_back(cl.sample)
+            wrong_last = cl.read_back(lasts)
+            t0 = time.monotonic()
+            after = cl.loop.run(lambda n: n >= more,
+                                budget_s=budget_s * 0.15)
+            steps["after"] = time.monotonic() - t0
+            le_end = _equal_last_executed(net, range(4), timeout=60)
+            out["restart_all"] = {
+                "last_executed_before": le_before,
+                "first_read_last_executed": {r: v[0] for r, v in
+                                             firsts.items()},
+                "up_s": {r: v[1] for r, v in firsts.items()},
+                "read_back": {"sampled": len(cl.sample),
+                              "sampled_wrong": len(wrong_sample),
+                              "clients_last_write_keys": len(lasts),
+                              "last_write_wrong": len(wrong_last)},
+                "load_after": after, "last_executed": le_end}
+            emit({"phase": "persistent_cluster", "step": "restart_all",
+                  **out["restart_all"]})
+            if [v[0] for v in firsts.values()] != le_before:
+                problems.append(f"the cluster came back at "
+                                f"{[v[0] for v in firsts.values()]}, not "
+                                f"{le_before}")
+            if wrong_sample or wrong_last:
+                problems.append(f"after the crash {len(wrong_sample)} "
+                                f"sampled and {len(wrong_last)} last-write "
+                                "keys wrong")
+            if cl.loop.errors or after["committed"] < more:
+                problems.append(f"after the crash {after['committed']} of "
+                                f"{more} writes, {cl.loop.errors[:3]}")
+
+            # ---- 6. what each process ran ----
+            reports = {r: _replica_report(net, r) for r in range(4)}
+            out["replicas"] = reports
+            cl.check_processes(reports, earlier=earlier)
+        finally:
+            net.stop_all()
+            if problems or sys.exc_info()[0] is not None:
+                _print_log_tails(log_dir)
+
+        # ---- 5. the files themselves ----
+        files = ledger_files(db_dir, range(4))
+        out["files"] = files
+        acked = sum(writes.next_write)
+        if set(files["last_block_id"].values()) != {acked}:
+            problems.append(f"ledgers hold {files['last_block_id']} "
+                            f"blocks, {acked} writes were acknowledged")
+        if files["first_unequal_block"] is not None:
+            problems.append(f"block {files['first_unequal_block']} differs "
+                            "between the replicas' files")
+    finally:
+        shutil.rmtree(db_dir, ignore_errors=True)
+    if process_cluster is not None:
+        out["beside_in_memory"] = {
+            "persistent_requests_per_s": out["load"]["requests_per_s"],
+            "persistent_commit_latency_ms": out["load"][
+                "commit_latency_ms"],
+            "in_memory_requests_per_s": process_cluster["load"][
+                "requests_per_s"],
+            "in_memory_commit_latency_ms": process_cluster["load"][
+                "commit_latency_ms"],
+            "in_memory_clients": process_cluster["clients"]}
+    return cl.finish(t_phase)
 
 
 BLS_SLOTS = 64
@@ -4094,9 +4454,10 @@ def sha256_rate_row(torch, dev, b: int, sm_clock_mhz: float) -> dict:
 
 
 def phase_kernels(torch, dev, plane, replica, ledger_replica,
-                  process_cluster, tls_cluster, kernel, ladder, ledger,
-                  digest, bls_plane, bls_ledger, ecdsa_plane, ecdsa_ledger,
-                  offload, mesh, sm_clock_mhz) -> dict:
+                  process_cluster, tls_cluster, persistent_cluster, kernel,
+                  ladder, ledger, digest, bls_plane, bls_ledger,
+                  ecdsa_plane, ecdsa_ledger, offload, mesh,
+                  sm_clock_mhz) -> dict:
     """Every kernel, timed at its path's shape: the verify kernel at one
     PrePrepare drain of 100 signatures, the ladder kernels at the ladder's
     1024 lanes, SHA-256 at a state-transfer window of 64 raw blocks that
@@ -4119,17 +4480,20 @@ def phase_kernels(torch, dev, plane, replica, ledger_replica,
            "source": "tpubft_torch/ops/csrc/ed25519_verify.cu",
            "replaces": "tpubft/ops/ed25519_pallas.py:421",
            # the main path's runs: the plane, the two in-process
-           # clusters and the replica processes (configs 1 and 5)
+           # clusters and the replica processes (configs 1 and 5, and
+           # config 1 on persistent ledgers)
            "launches": plane["launches"]["ed25519_verify"]
            + replica["verify_launches"] + ledger_replica["verify_launches"]
            + process_cluster["verify_launches"]
-           + tls_cluster["verify_launches"],
+           + tls_cluster["verify_launches"]
+           + persistent_cluster["verify_launches"],
            "launches_by_path": {
                "plane": plane["launches"]["ed25519_verify"],
                "replica": replica["verify_launches"],
                "ledger_replica": ledger_replica["verify_launches"],
                "process_cluster": process_cluster["verify_launches"],
                "tls_cluster": tls_cluster["verify_launches"],
+               "persistent_cluster": persistent_cluster["verify_launches"],
                "ladder": next(r["launches"] for r in ladder["rungs"]
                               if r["kernel"] == "ed25519_verify")},
            "replica_signatures_per_launch":
@@ -4168,8 +4532,8 @@ def phase_kernels(torch, dev, plane, replica, ledger_replica,
                 "share_of_bound", "mismatches_vs_int",
                 "mismatches_vs_plain")}
     rows.append(sha256_kernel_row(torch, dev, ledger_replica,
-                                  process_cluster, ledger, digest,
-                                  sm_clock_mhz))
+                                  process_cluster, persistent_cluster,
+                                  ledger, digest, sm_clock_mhz))
     rows += bls_kernel_rows(torch, dev, bls_plane, bls_ledger, offload,
                             sm_clock_mhz)
     rows += ecdsa_kernel_rows(torch, dev, ecdsa_plane, ecdsa_ledger, offload,
@@ -4205,16 +4569,18 @@ LADDER_REPLACES = {
     "fe_table_gather": "tools/pallas_bringup.py:175"}
 
 
-def sha256_kernel_row(torch, dev, ledger_replica, process_cluster, ledger,
-                      digest, sm_clock_mhz) -> dict:
+def sha256_kernel_row(torch, dev, ledger_replica, process_cluster,
+                      persistent_cluster, ledger, digest,
+                      sm_clock_mhz) -> dict:
     """The SHA-256 kernel at the shape the main path launched it: one
     full window (64 raw blocks) that the ledger replica's catch-up
     digested, timed and held against its plain version there; also
     against the plain version on the digest phase's first window, its
     mixed window and a 1024-node Merkle level. Launches are the ledger
-    replica's catch-up windows, the restarted replica process's and the
-    digest phase's (the migrate-chunk ledger launched none), the stress
-    ledger's beside them."""
+    replica's catch-up windows, the restarted replica processes' (empty
+    in process_cluster, on their kvlog files in persistent_cluster) and
+    the digest phase's (the migrate-chunk ledger launched none), the
+    stress ledger's beside them."""
     import hashlib
 
     from tpubft_torch.ops import sha256 as sha
@@ -4243,12 +4609,14 @@ def sha256_kernel_row(torch, dev, ledger_replica, process_cluster, ledger,
             "source": "tpubft_torch/ops/csrc/sha256.cu",
             "replaces": "tpubft/ops/sha256.py:82 (and :178)",
             "launches": ledger_replica["sha256_launches"]
-            + process_cluster["sha256_launches"] + digest["launches"]
+            + process_cluster["sha256_launches"]
+            + persistent_cluster["sha256_launches"] + digest["launches"]
             + ledger["migrate_chunks"]["sha256_launches"],
             "launches_by_path": {
                 "ledger_replica_catch_up": ledger_replica["sha256_launches"],
                 "process_cluster_catch_up":
                     process_cluster["sha256_launches"],
+                "persistent_cluster": persistent_cluster["sha256_launches"],
                 "digest": digest["launches"],
                 "migrate_chunks": ledger["migrate_chunks"]["sha256_launches"]},
             "stress_launches": ledger["stress"]["sha256_launches"],
@@ -4418,6 +4786,8 @@ def main() -> int:
     ledger_replica = phase_ledger_replica(torch, dev)
     process_cluster = phase_process_cluster(torch, dev, ledger_replica)
     tls_cluster = phase_tls_cluster(torch, dev)
+    persistent_cluster = phase_persistent_cluster(torch, dev,
+                                                  process_cluster)
     bls_plane = phase_bls_plane(torch, dev)
     bls_ledger = phase_bls_ledger_replica(torch, dev)
     ecdsa_plane = phase_ecdsa_plane(torch, dev)
@@ -4428,9 +4798,9 @@ def main() -> int:
     digest = phase_digest(torch, dev, ledger.pop("raws"))
     phase_rate(torch, dev, clock, info["nvidia_smi"])
     phase_kernels(torch, dev, plane, replica, ledger_replica,
-                  process_cluster, tls_cluster, kernel, ladder, ledger,
-                  digest, bls_plane, bls_ledger, ecdsa_plane, ecdsa_ledger,
-                  offload, mesh, clock)
+                  process_cluster, tls_cluster, persistent_cluster, kernel,
+                  ladder, ledger, digest, bls_plane, bls_ledger,
+                  ecdsa_plane, ecdsa_ledger, offload, mesh, clock)
     emit({"phase": "done", "wall_s": time.monotonic() - t_start})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

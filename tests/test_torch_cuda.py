@@ -781,3 +781,27 @@ def test_config5_storm_on_the_card(card):
     # its module name, as pytest imported it
     from test_torch_processes import config5_storm
     config5_storm("cuda")
+
+
+def test_persistent_cluster_on_the_card(card):
+    """chip_smoke.py's persistent_cluster phase, with all its checks, at a
+    smaller size: four replica processes on the card on their own kvlog
+    files (BftTestNetwork(db_dir=...)); replica 3 SIGKILLed and
+    restarted on its file (back at its last_executed, caught up by state
+    transfer through the SHA-256 kernel, no block it kept fetched), the
+    whole cluster SIGKILLed and restarted (every acknowledged write read
+    back, more writes commit), equal blocks in the four files, the verify
+    kernel launched and nothing degraded."""
+    import importlib.util
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    out = smoke.phase_persistent_cluster(
+        torch, card, clients=8, target=120, reads=40, more=40,
+        checkpoint_window=10, work_window=20, budget_s=300)
+    assert out["restart_one"]["first_read_last_executed"] == \
+        out["restart_one"]["last_executed_before_kill"] > 0
+    assert out["verify_launches"] > 0 and out["sha256_launches"] > 0

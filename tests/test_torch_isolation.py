@@ -1,8 +1,10 @@
 """The port stands alone: tpubft_torch (the tuning and offload planes
 among it) and chip_smoke.py import nothing of JAX, of the reference
 package or of `cryptography` (the machine with the card has none; the
-TLS material is written by comm/_der.py), and chip_smoke.py refuses to
-run without a card or without the port beside it."""
+TLS material is written by comm/_der.py), the native libraries the port
+loads (netio, the BLS engine, kvlog) are its own builds in ops/_build/,
+and chip_smoke.py refuses to run without a card or without the port
+beside it."""
 import ast
 import os
 import shutil
@@ -143,6 +145,59 @@ def test_ctypes_loads_stay_inside_the_port():
     if bls_native.available():
         assert os.path.abspath(bls_native._lib._name).startswith(
             os.path.join(port, "ops", "_build")), bls_native._lib._name
+    if shutil.which("g++") is not None:
+        from tpubft_torch.storage import native
+        kvlog = os.path.abspath(native._lib()._name)
+        assert kvlog.startswith(os.path.join(port, "ops", "_build")), kvlog
+        assert os.path.basename(kvlog).startswith("libkvlog-"), kvlog
+
+
+_STORAGE_ALONE = r"""
+import os, shutil, sys, tempfile
+from tpubft_torch.kvbc.replica import open_db
+from tpubft_torch.storage import WriteBatch, native, objectstore, s3
+from tpubft_torch.storage.metadata import CONSENSUS_META_FAMILIES
+from tpubft_torch.testing.s3server import S3TestServer
+d = tempfile.mkdtemp()
+db = open_db(os.path.join(d, "r", "replica-0.kvlog"),
+             sync_families=CONSENSUS_META_FAMILIES)
+db.write(WriteBatch().put(b"k", b"v", family=b"metadata"))
+assert db.get(b"k", b"metadata") == b"v"
+db.close()
+with S3TestServer(access_key="a", secret_key="s") as srv:
+    st = s3.S3ObjectStore(srv.endpoint, "b", access_key="a", secret_key="s")
+    st.put("x", b"y")
+    assert st.get("x") == b"y"
+objectstore.FsObjectStore(os.path.join(d, "fs")).put("x", b"y")
+shutil.rmtree(d)
+maps = [line.split()[-1] for line in open("/proc/self/maps")
+        if "kvlog" in line]
+print("KVLOG:" + ",".join(sorted(set(maps))))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "tpubft", "cryptography"))
+print("LEAKED:" + ",".join(bad))
+"""
+
+
+def test_storage_loads_only_the_ports_kvlog_and_no_reference():
+    """storage/ (NativeDB through open_db, the S3 store and server, the
+    filesystem store) runs in a process that imports nothing of JAX, of
+    the reference or of `cryptography`, and the only kvlog library
+    mapped into it is the port's lib<kvlog>-<hash>.so in ops/_build/
+    (never the reference's native/_kvlog.so)."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++: the engine is built from source at first use")
+    out = subprocess.run([sys.executable, "-c", _STORAGE_ALONE],
+                         capture_output=True, text=True, cwd=ROOT,
+                         env=_env(), timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED:\n" in out.stdout + "\n", out.stdout
+    libs = [line[len("KVLOG:"):].split(",") for line in
+            out.stdout.splitlines() if line.startswith("KVLOG:")][0]
+    build = os.path.join(ROOT, "tpubft_torch", "ops", "_build") + os.sep
+    assert libs and all(p.startswith(build)
+                        and os.path.basename(p).startswith("libkvlog-")
+                        for p in libs), libs
 
 
 def test_udp_transport_loads_the_ports_own_netio():

@@ -4,9 +4,11 @@ apps/skvbc_replica, apps/tester_client) and its process cluster
 the cuda backend's wrappers run their plain versions on CPU tensors),
 held to what tests/test_skvbc_processes.py holds the reference to, plus
 clusters over TCP, TLS and tls-mux, clusters of reference and port
-replicas over UDP and over TLS (the direct wire check), the UDP metrics
-server's reply against the reference's, and the refusals of the planes
-not ported yet. Every test waits on state under
+replicas over UDP and over TLS (the direct wire check), clusters on
+persistent ledgers (`db_dir`: a replica and the whole cluster SIGKILLed
+and restarted on their kvlog files, and a reference replica's file taken
+up by a port replica), the UDP metrics server's reply against the
+reference's, and the refusals of the planes not ported yet. Every test waits on state under
 its own deadline and kills its processes in a `finally`."""
 import errno
 import json
@@ -242,10 +244,46 @@ def test_network_writes_tls_material_for_every_principal(transport):
     assert not os.path.exists(certs)
 
 
-def _spawn_reference(net, r):
+def test_network_keeps_tls_material_under_db_dir(tmp_path, monkeypatch):
+    """With db_dir the TLS material goes under db_dir/tls, as the
+    reference's network writes it, a replica is spawned with --db-dir
+    and --certs-dir there and logs to db_dir/replica-<id>.log, and
+    stop_all leaves the material in place."""
+    spawned = []
+
+    class Exited:
+        returncode = 0
+
+        def __init__(self, args, **_kw):
+            spawned.append(args)
+
+        def poll(self):
+            return 0
+
+        def wait(self, timeout=None):
+            return 0
+    monkeypatch.setattr(network.subprocess, "Popen", Exited)
+    net = BftTestNetwork(f=1, num_clients=2, device="cpu", transport="tls",
+                         db_dir=str(tmp_path))
+    try:
+        assert net.certs_dir == str(tmp_path / "tls")
+        assert os.path.exists(tmp_path / "tls" / "node-0.crt")
+        net.start_replica(2)
+        args = spawned[0]
+        assert args[args.index("--db-dir") + 1] == str(tmp_path)
+        assert args[args.index("--certs-dir") + 1] == str(tmp_path / "tls")
+        assert os.path.exists(tmp_path / "replica-2.log")
+    finally:
+        net.stop_all()
+    assert net.certs_dir == str(tmp_path / "tls")
+    assert sorted(os.listdir(tmp_path / "tls"))[:2] == ["node-0.crt",
+                                                       "node-0.key"]
+
+
+def _spawn_reference(net, r, db_dir=None):
     """A replica of the JAX package's tpubft.apps.skvbc_replica on the
     CPU, on the port network's ports, seed and transport (over TLS with
-    the material the port network wrote)."""
+    the material the port network wrote), on `db_dir` when given."""
     cmd = [sys.executable, "-m", "tpubft.apps.skvbc_replica",
            "--replica", str(r), "--f", str(net.f),
            "--clients", str(net.num_clients),
@@ -258,6 +296,8 @@ def _spawn_reference(net, r):
            "--transport", net.transport]
     if net.transport in ("tls", "tls-mux"):
         cmd += ["--certs-dir", net.certs_dir]
+    if db_dir is not None:
+        cmd += ["--db-dir", db_dir]
     net.procs[r] = subprocess.Popen(
         cmd, env=dict(os.environ, PYTHONPATH=ROOT, JAX_PLATFORMS="cpu"),
         stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
@@ -297,6 +337,128 @@ def _mixed_cluster(transport):
         assert le[0] >= 16
     finally:
         net.stop_all()
+
+
+def test_persistent_replica_restarts_from_its_own_file(tmp_path):
+    """The counterpart of tests/test_skvbc_processes.py:58 on the port:
+    four replica processes on persistent DBs (`db_dir`); replica 3 is
+    SIGKILLed, the others go past its work window, and replica 3
+    restarts on its own kvlog file: its first metrics read is the
+    last_executed it had before the kill (not 0), it catches up by state
+    transfer fetching only the blocks it missed, and the keys written
+    before, during and after the kill read back."""
+    net = BftTestNetwork(f=1, num_clients=3, seed="port-persist",
+                         device="cpu", checkpoint_window=5, work_window=10,
+                         db_dir=str(tmp_path))
+    try:
+        net.start_all(timeout=180)
+        kvs = [net.skvbc_client(i) for i in range(3)]
+        acked = _load(kvs, 4, b"before")
+        le = _equal_last_executed(net, range(4))
+        before = le[3]
+        assert before > 0
+
+        net.kill_replica(3)
+        during = _load(kvs, 8, b"during")
+        acked.update(during)
+        stable = [net.metrics(r).get("replica", "gauges", "last_stable_seq")
+                  for r in (0, 1, 2)]
+        assert min(stable) > before + net.work_window, (stable, before)
+
+        net.start_replica(3)
+        assert net.first_answer(3, timeout=180)[0] == before
+        fetched = lambda: net.metrics(3).get(  # noqa: E731
+            "state_transfer", "counters", "blocks_fetched") or 0
+        deadline = time.monotonic() + 180
+        rounds = 0
+        while fetched() == 0 or (net.last_executed(3) or 0) < min(stable):
+            assert time.monotonic() < deadline, "replica 3 never caught up"
+            acked.update(_load(kvs, 1, b"c%d" % rounds))
+            rounds += 1
+        _equal_last_executed(net, range(4), timeout=120)
+        after = _load(kvs, 2, b"after")
+        acked.update(after)
+        _equal_last_executed(net, range(4), timeout=120)
+        assert kvs[2].read(sorted(acked), timeout_ms=60000) == acked
+        # it fetched what it missed, never the blocks it kept: at most
+        # the writes committed while it was down or catching up
+        missed = len(acked) - 12
+        assert 0 < fetched() <= missed, (fetched(), missed)
+    finally:
+        net.stop_all()
+    assert all(p.poll() is not None for p in net.procs.values())
+    files = network.ledger_files(str(tmp_path), range(4))
+    assert set(files["last_block_id"].values()) == {len(acked)}
+    assert files["first_unequal_block"] is None
+
+
+def test_persistent_cluster_comes_back_from_a_whole_cluster_sigkill(
+        tmp_path):
+    """All four replica processes SIGKILLed at once and restarted on
+    their kvlog files: each resumes from its persisted last_executed,
+    every acknowledged write (and the last of every client) reads back,
+    and the cluster orders writes again to equal last_executed."""
+    net = BftTestNetwork(f=1, num_clients=3, seed="port-persist-all",
+                         device="cpu", checkpoint_window=5, work_window=10,
+                         db_dir=str(tmp_path))
+    try:
+        net.start_all(timeout=180)
+        kvs = [net.skvbc_client(i) for i in range(3)]
+        acked = _load(kvs, 6, b"a")
+        le = _equal_last_executed(net, range(4))
+        for r in range(4):
+            net.procs[r].send_signal(signal.SIGKILL)
+        for r in range(4):
+            net.kill_replica(r)
+        for r in range(4):
+            net.start_replica(r)
+        assert [net.first_answer(r, timeout=180)[0] for r in range(4)] == le
+        net.wait_for_replicas_up(timeout=180)
+        assert kvs[0].read(sorted(acked), timeout_ms=60000) == acked
+        last = {b"a-%d-5" % i: b"v-%d-5" % i for i in range(3)}
+        assert kvs[1].read(sorted(last), timeout_ms=60000) == last
+        more = _load(kvs, 3, b"b")
+        acked.update(more)
+        le2 = _equal_last_executed(net, range(4), timeout=120)
+        assert le2[0] > le[0]
+        assert kvs[2].read(sorted(acked), timeout_ms=60000) == acked
+    finally:
+        net.stop_all()
+    files = network.ledger_files(str(tmp_path), range(4))
+    assert set(files["last_block_id"].values()) == {len(acked)}
+    assert files["first_unequal_block"] is None
+
+
+def test_reference_replica_file_taken_up_by_a_port_replica(tmp_path):
+    """Replica 3 runs as a reference process (the JAX package's
+    skvbc_replica) on `db_dir`, orders writes with three port replicas,
+    is SIGKILLed and restarts as a port process on the same kvlog file:
+    it resumes from the reference's persisted last_executed and the
+    cluster orders writes again, every key reading back."""
+    net = BftTestNetwork(f=1, num_clients=2, seed="port-persist-mixed",
+                         device="cpu", checkpoint_window=5, work_window=10,
+                         db_dir=str(tmp_path))
+    try:
+        network.build_libraries("cpu")
+        _spawn_reference(net, 3, db_dir=str(tmp_path))
+        for r in (0, 1, 2):
+            net.start_replica(r)
+        net.wait_for_replicas_up(timeout=180)
+        kvs = [net.skvbc_client(i) for i in range(2)]
+        acked = _load(kvs, 5, b"ref")
+        le = _equal_last_executed(net, range(4))
+        net.kill_replica(3)
+        net.start_replica(3)
+        assert net.first_answer(3, timeout=180)[0] == le[3] > 0
+        acked.update(_load(kvs, 5, b"port"))
+        le2 = _equal_last_executed(net, range(4), timeout=120)
+        assert le2[3] > le[3]
+        assert kvs[1].read(sorted(acked), timeout_ms=60000) == acked
+    finally:
+        net.stop_all()
+    files = network.ledger_files(str(tmp_path), range(4))
+    assert set(files["last_block_id"].values()) == {len(acked)}
+    assert files["first_unequal_block"] is None
 
 
 def test_start_all_retries_once_on_a_taken_port():
@@ -347,6 +509,39 @@ def test_udp_metrics_server_replies_as_the_reference():
         "counters"]["c2"] == 21
 
 
+def test_metrics_client_drops_datagrams_from_other_senders():
+    """A datagram from another sender that reaches the polling socket
+    first (a consensus message for a killed replica whose port the
+    socket was given) is dropped, and the server's reply is read; a
+    poll with no reply returns None at its timeout."""
+    server = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    server.bind(("127.0.0.1", 0))
+    server.settimeout(10)
+    stray = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    reply = json.dumps({"components": {"replica": {"gauges": {
+        "last_executed_seq": 7}}}}).encode()
+
+    def serve():
+        ask, client = server.recvfrom(64)
+        assert ask == b"metrics"
+        stray.sendto(bytes(range(0xd0, 0x100)), client)
+        time.sleep(0.05)
+        server.sendto(reply, client)
+    t = threading.Thread(target=serve)
+    t.start()
+    mc = network.MetricsClient(server.getsockname()[1])
+    try:
+        assert mc.get("replica", "gauges", "last_executed_seq",
+                      timeout=10) == 7
+    finally:
+        t.join()
+        stray.close()
+        server.close()
+    t0 = time.monotonic()
+    assert mc.snapshot(timeout=0.2) is None
+    assert time.monotonic() - t0 < 5
+
+
 @pytest.mark.parametrize("module", ["tpubft_torch.apps.skvbc_replica",
                                     "tpubft_torch.apps.simple_test"])
 def test_replica_without_a_card_exits_with_no_device(module):
@@ -362,8 +557,23 @@ def test_replica_without_a_card_exits_with_no_device(module):
     assert network.MetricsClient(base + 1000).snapshot(0.3) is None
 
 
+@pytest.mark.parametrize("phase", ["process_cluster", "persistent_cluster"])
+def test_cluster_ab_without_a_card_exits_with_no_result(phase):
+    """tools/cluster_ab.py runs a checkout's cluster phase on the card
+    only: without one it exits 2 and prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    out = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tpubft_torch", "tools",
+                                      "cluster_ab.py"),
+         "--tree", ROOT, "--phase", phase, "--clients", "4"],
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 2
+    assert out.stdout == ""
+    assert "no CUDA device" in out.stderr
+
+
 @pytest.mark.parametrize("argv, step", [
-    (["--db-dir", "/nonexistent"], "A.9.2"),
     (["--kvbc-version", "v4"], "A.9.3"),
     (["--trs-port", "0"], "A.9.4"),
     (["--pre-execution"], "A.9.4"),
@@ -377,7 +587,6 @@ def test_skvbc_replica_refuses_unported_options(argv, step):
 
 
 @pytest.mark.parametrize("kw, step", [
-    (dict(db_dir="/nonexistent"), "A.9.2"),
     (dict(pre_execution=True), "A.9.4"),
 ])
 def test_network_refuses_unported_options(kw, step):

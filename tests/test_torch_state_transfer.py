@@ -730,3 +730,68 @@ def test_lagging_replica_catches_up_to_the_reference_digests():
     finally:
         ref.stop()
 
+
+
+def test_transfer_aborts_the_speculation_it_would_wait_on():
+    """Replica 3 accepts a PrePrepare and speculates on it, but never
+    sees its certificates, while the others order past its work window
+    and collect the slot behind their stable checkpoint. Its transfer
+    must not wait on that speculation: the link of the fetched blocks
+    defers while an open speculative accumulation holds the staging lock,
+    and the commit that would close it never comes. (The reference
+    wedges here, st `fetching` with the speculation open; the port
+    aborts the speculation when a transfer starts and speculates no more
+    while one is in progress.) Replica 3 reaches the others' head with
+    equal state."""
+    import struct
+
+    from tpubft_torch.consensus import messages as m
+    certs = {int(c) for c in (
+        m.MsgCode.PreparePartial, m.MsgCode.PrepareFull,
+        m.MsgCode.CommitPartial, m.MsgCode.CommitFull,
+        m.MsgCode.PartialCommitProof, m.MsgCode.FullCommitProof)}
+    deaf = []
+
+    def drop_certs_to_3(_s, d, data):
+        if deaf and d == 3 and len(data) >= 2 \
+                and struct.unpack_from("<H", data)[0] in certs:
+            return None
+        return data
+    overrides = dict(checkpoint_window_size=5, work_window_size=10)
+    cluster = _skvbc_cluster("tpubft_torch", overrides)
+    cluster.bus.add_hook(drop_certs_to_3)
+    cluster.start()
+    try:
+        kv = skvbc.SkvbcClient(cluster.client(0))
+        reps = cluster.replicas
+        for i in range(3):
+            assert kv.write([(b"a%d" % i, b"v")], timeout_ms=60000).success
+        _wait(lambda: reps[3].last_executed == reps[0].last_executed, 60,
+              "the four to agree")
+        deaf.append(True)
+        assert kv.write([(b"spec", b"v")], timeout_ms=60000).success
+        _wait(lambda: cluster.handlers[3].blockchain.speculation_open
+              or reps[3].m_exec_spec_aborts.value > 0, 60,
+              "replica 3 to speculate")
+        stuck_at = reps[3].last_executed
+        deadline = time.monotonic() + 120
+        n = 0
+        while min(reps[r].last_stable for r in (0, 1, 2)) \
+                <= stuck_at + overrides["work_window_size"]:
+            assert time.monotonic() < deadline, "the others never moved on"
+            assert kv.write([(b"b%d" % n, b"v")], timeout_ms=60000).success
+            n += 1
+        deaf.clear()
+        assert kv.write([(b"last", b"v")], timeout_ms=60000).success
+        h0 = cluster.handlers[0].blockchain
+        h3 = cluster.handlers[3].blockchain
+        _wait(lambda: h3.last_block_id == h0.last_block_id
+              and not reps[3].state_transfer.is_fetching, 60,
+              "replica 3 to reach the head")
+        assert h3.state_digest() == h0.state_digest()
+        assert not h3.speculation_open
+        assert reps[3].m_exec_spec_aborts.value > 0
+        assert reps[3].state_transfer.metrics.snapshot()["counters"][
+            "blocks_fetched"] > 0
+    finally:
+        cluster.stop()

@@ -9,8 +9,8 @@ byzantine communication-wrapping strategy for fault-injection tests
 (TesterReplica/strategy/ + WrapCommunication.cpp).
 
 Run:  python -m tpubft_torch.apps.skvbc_replica --replica 0 --f 1 \\
-          --base-port 3710 --metrics-port 4710 [--diag-port P] \\
-          [--seed S] [--device cuda|cpu]
+          --base-port 3710 --metrics-port 4710 [--db-dir DIR] \\
+          [--diag-port P] [--seed S] [--device cuda|cpu]
 
 Port divergences (reference skvbc_replica.py:27-193):
 - `--device cuda|cpu` (default cuda) picks where the port's tensors live
@@ -18,11 +18,12 @@ Port divergences (reference skvbc_replica.py:27-193):
   the process exits non-zero with NoDevice before it serves.
 - `--crypto-backend` takes cuda|cpu|auto and defaults to cuda (the
   reference's default is cpu).
-- The ledger lives in memory. The options of planes the port does not
-  carry yet are refused with the ROADMAP step that ports them:
-  `--db-dir` (A.9.2), `--kvbc-version v4` (A.9.3), `--trs-port`,
-  `--pre-execution` (A.9.4), `--prom-port` (A.9.5) and `--fault-port`
-  (A.9.6).
+- The options of planes the port does not carry yet are refused with
+  the ROADMAP step that ports them: `--kvbc-version v4` (A.9.3),
+  `--trs-port`, `--pre-execution` (A.9.4), `--prom-port` (A.9.5) and
+  `--fault-port` (A.9.6). `--db-dir` keeps the ledger and the consensus
+  metadata in `DIR/replica-<id>.kvlog`, as the reference does; without
+  it they live in memory.
 - The UDP transport's netio counters (comm/udp.METRICS) are published
   beside the replica's own components.
 - `status get device` also reports ops/ecdsa.COUNTS (the RLC path's
@@ -51,7 +52,6 @@ def refuse_unported(args) -> None:
     """Port divergence: refuse, before anything is built, every option
     whose plane is not ported yet, naming its ROADMAP step."""
     for flag, on, step in (
-            ("--db-dir", args.db_dir is not None, "A.9.2"),
             ("--kvbc-version v4", args.kvbc_version != "categorized",
              "A.9.3"),
             ("--trs-port", args.trs_port is not None, "A.9.4"),
@@ -115,7 +115,9 @@ def build_replica(args, comm_wrapper=None) -> KvbcReplica:
         # a BLOCK_MERKLE category so every read has an audit path
         from tpubft_torch.apps.skvbc import SkvbcHandler
         handler_factory = lambda bc: SkvbcHandler(bc, merkle=True)  # noqa: E731
-    return KvbcReplica(cfg, keys, comm, db_path=None, aggregator=agg,
+    db_path = (os.path.join(args.db_dir, f"replica-{args.replica}.kvlog")
+               if args.db_dir else None)
+    return KvbcReplica(cfg, keys, comm, db_path=db_path, aggregator=agg,
                        handler_factory=handler_factory)
 
 
@@ -157,8 +159,9 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--prom-port", type=int, default=None,
                    help="Prometheus /metrics HTTP port (not ported: A.9.5)")
     p.add_argument("--db-dir", default=None,
-                   help="persistent ledger directory (not ported: A.9.2; "
-                        "the ledger lives in memory)")
+                   help="persistent ledger directory: the replica keeps "
+                        "its ledger and consensus metadata in "
+                        "DIR/replica-<id>.kvlog (default: in memory)")
     p.add_argument("--seed", default="tpubft-skvbc")
     p.add_argument("--transport", default="udp",
                    choices=("udp", "tcp", "tls", "tls-mux"))

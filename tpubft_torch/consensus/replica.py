@@ -932,8 +932,22 @@ class Replica(IReceiver):
             return
         if now - t > self.cfg.st_stall_timeout_ms / 1000.0:
             self._st_stall_mark = (self.last_executed, now)
-            self.state_transfer.start_collecting(
-                max(ahead), dict(self.certified_checkpoints))
+            self._start_state_transfer(max(ahead))
+
+    def _start_state_transfer(self, min_seq: int) -> None:
+        """Fetch state toward a certified checkpoint at or past
+        `min_seq`. Port divergence (reference replica.py:904 and :3344
+        call start_collecting alone): the speculation is aborted first.
+        The transfer links its blocks under the staging lock, which an
+        open speculative accumulation holds until its commit arrives;
+        a replica far enough behind to transfer never gets that commit
+        (the peers have collected the slot behind their stable
+        checkpoint), so the link deferred forever and the replica never
+        caught up. The aborted slots re-execute from their committed
+        bodies, or are superseded by the transferred checkpoint."""
+        self._abort_speculation("state-transfer")
+        self.state_transfer.start_collecting(
+            min_seq, dict(self.certified_checkpoints))
 
     def _on_transfer_complete(self, seq: int, state_digest: bytes) -> None:
         """onTransferringComplete (IStateTransfer.hpp:113): jump forward to
@@ -2715,6 +2729,12 @@ class Replica(IReceiver):
         if not self._spec_enabled or self.exec_lane is None \
                 or not self._running or self.in_view_change:
             return
+        if self.state_transfer is not None \
+                and self.state_transfer.is_fetching:
+            # Port divergence (reference replica.py:2710-2712): no new
+            # speculation while a transfer is in progress; its link
+            # would defer behind the accumulation (_start_state_transfer)
+            return
         while True:
             nxt = max(self._exec_enqueued, self.last_executed) + 1
             if not self.window.in_window(nxt) \
@@ -3346,8 +3366,7 @@ class Replica(IReceiver):
                 log.info("lagging by >window (ckpt %d vs executed %d): "
                          "starting state transfer", ck.seq_num,
                          self.last_executed)
-                self.state_transfer.start_collecting(
-                    ck.seq_num, dict(self.certified_checkpoints))
+                self._start_state_transfer(ck.seq_num)
         # stability needs the full 2f+c+1 certificate (reference
         # CheckpointInfo.hpp): guarantees f+1 honest replicas hold this
         # checkpoint before we GC the window behind it

@@ -24,9 +24,18 @@ arrays, bytes, ints), so this module needs nothing of the reference:
     keys; client keys of any scheme, 65-byte SEC1 points for ECDSA);
   * `block_updates` builds a block's updates for either package from
     plain (category, key, value, type) rows;
-  * `memorydb_from_rows` carries a ledger across: the port's MemoryDB
-    holding the (family, key, value) rows of a reference DB's
+  * `memorydb_from_rows` carries an in-memory ledger across: the port's
+    MemoryDB holding the (family, key, value) rows of a reference DB's
     `scan_all()`, byte for byte.
+
+A persistent ledger needs no function here: the kvlog file itself is
+the state carried across. The port's NativeDB (storage/native.py, over
+its own copy of native/kvlog.cpp) writes the reference's files byte for
+byte for the same batches, after compaction and checkpoint too, and
+each package opens the other's files (tests/test_torch_storage.py); a
+port replica started with `--db-dir` on a reference replica's
+`replica-<id>.kvlog` takes it up as it is
+(tests/test_torch_processes.py).
 """
 from __future__ import annotations
 

@@ -9,15 +9,14 @@ requests against the blockchain. The same inversion as the reference:
 this object sits *above* the consensus engine it creates while also
 implementing its execution upcall.
 
-The port diverges from the reference in four places, each marked where
-it sits: `open_db` gives the in-memory store only (the reference's
-NativeDB binds a native library the port does not build yet, ROADMAP
-A.9); device hashing follows `crypto_backend == "cuda"`; no
+The port diverges from the reference in three places, each marked where
+it sits: device hashing follows `crypto_backend == "cuda"`; no
 reconfiguration dispatcher is attached (A.9); and a thin-replica port
 is refused, as the port's Replica refuses the read tier (A.9).
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 from tpubft_torch.comm.interfaces import ICommunication
@@ -42,13 +41,10 @@ def open_db(db_path: Optional[str],
     carve-out)."""
     if db_path is None:
         return MemoryDB()
-    # Port divergence (reference replica.py:37-40): NativeDB binds the
-    # reference's native kvlog library, which the port must build from
-    # its own copy of the source first.
-    raise NotImplementedError(
-        f"open_db({db_path!r}): the native storage engine is not ported "
-        f"to tpubft_torch yet (ROADMAP A.9); pass db_path=None for the "
-        f"in-memory store")
+    from tpubft_torch.storage.native import NativeDB
+    os.makedirs(os.path.dirname(db_path) or ".", exist_ok=True)
+    return NativeDB(db_path, sync_writes=sync_writes,
+                    sync_families=sync_families)
 
 
 class KvbcReplica:

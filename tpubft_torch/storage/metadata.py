@@ -7,8 +7,8 @@ metadata objects with atomic multi-object transactions, used by the
 consensus engine's persistent state. Also provides DBPersistentStorage,
 which plugs the consensus `PersistentStorage` interface
 (consensus/persistent.py) into any IDBClient backend — with the
-reference's native kvlog engine (not ported, ROADMAP A.9) this gives
-the crash-consistent WAL semantics of PersistentStorageImp.
+native kvlog engine (storage/native.py) this gives the crash-consistent
+WAL semantics of PersistentStorageImp.
 """
 from __future__ import annotations
 

@@ -19,8 +19,9 @@ crafts it the same way).
 per block.
 
 The package also holds the harnesses (port of tpubft/testing/):
-`InProcessCluster` runs a cluster in this process, and `BftTestNetwork`
-(with its `MetricsClient`) one OS process a replica over UDP or TCP.
+`InProcessCluster` runs a cluster in this process, `BftTestNetwork`
+(with its `MetricsClient`) one OS process a replica over UDP, TCP or TLS,
+and `S3TestServer` is the S3-compatible test server of storage/s3.py.
 They are exported lazily (PEP 562), since
 `tpubft_torch.testing.slowdown` and `.crashpoints` are imported by the
 consensus engine at module scope and an eager cluster import here would
@@ -275,4 +276,7 @@ def __getattr__(name):
     if name in ("BftTestNetwork", "MetricsClient"):
         from tpubft_torch.testing import network
         return getattr(network, name)
+    if name == "S3TestServer":
+        from tpubft_torch.testing.s3server import S3TestServer
+        return S3TestServer
     raise AttributeError(name)

@@ -14,18 +14,27 @@ Port divergences (reference network.py:70-491):
 - `device=` ("cuda", the default, or "cpu") goes to every replica as
   `--device`, and `crypto_backend` defaults to "cuda" (the reference's
   to "cpu"); the port's own tree is first on the replicas' PYTHONPATH.
-- `start_all` builds every library a replica loads (netio, and on the
-  card the CUDA kernels) once in this process before it spawns the
-  replicas, so that they do not all run the compilers at once.
+- `start_all` builds every library a replica loads (netio, aescbc,
+  kvlog, and on the card the CUDA kernels) once in this process before
+  it spawns the replicas, so that they do not all run the compilers at
+  once.
 - Without `base_port`, the base is drawn so that every UDP and TCP port
   the cluster uses binds free; a replica that still meets EADDRINUSE
   exits with that code, and `start_all` then retries once on a new base.
 - Replicas run without `--fault-port` and `--trs-port`; the per-link
   faults (A.9.6), `start_ro_replica` (A.9.4) and `operator_client`
-  (A.9.4) raise NotImplementedError, as does `db_dir` (A.9.2).
-- The TLS transports keep their material in a temporary directory that
-  the network owns (the reference keeps it under `db_dir/tls`), written
-  again when a stopped network starts.
+  (A.9.4) raise NotImplementedError.
+- With `db_dir`, every replica keeps its ledger in
+  `db_dir/replica-<id>.kvlog` (`--db-dir`) and its output in
+  `db_dir/replica-<id>.log` unless `log_dir` names another directory;
+  the TLS material goes under `db_dir/tls`, as the reference puts it,
+  and stop_all leaves it there. Without `db_dir` the replicas keep
+  their ledgers in memory, and the TLS material lives in a temporary
+  directory that the network owns (the reference asserts `db_dir` for
+  TLS), written again when a stopped network starts.
+- Added: `BftTestNetwork.first_answer` (what a (re)started replica
+  recovered, and when it first answered) and `ledger_files` (the
+  stopped replicas' kvlog files compared block by block).
 """
 from __future__ import annotations
 
@@ -41,7 +50,7 @@ import sys
 import tempfile
 import time
 import weakref
-from typing import Dict, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 from tpubft_torch.apps.simple_test import child_env, endpoint_table
 from tpubft_torch.apps.skvbc import SkvbcClient
@@ -59,13 +68,25 @@ class MetricsClient:
         self.addr = (host, port)
 
     def snapshot(self, timeout: float = 1.0) -> Optional[dict]:
+        """The server's metrics, or None if it did not answer within
+        `timeout`. Port divergence (reference network.py:43-53 decodes
+        the first datagram that arrives): datagrams from any other
+        sender are dropped. The socket's ephemeral port may be the port
+        of a killed replica, which the others still send consensus
+        messages to; decoded as the reply, one raised UnicodeDecodeError
+        out of a poll."""
         s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
-        s.settimeout(timeout)
+        deadline = time.monotonic() + timeout
         try:
             s.sendto(b"metrics", self.addr)
-            data, _ = s.recvfrom(1 << 20)
-            return json.loads(data.decode())
-        except (OSError, json.JSONDecodeError):
+            while True:
+                s.settimeout(max(1e-3, deadline - time.monotonic()))
+                data, sender = s.recvfrom(1 << 20)
+                if sender == self.addr:
+                    return json.loads(data.decode())
+                if time.monotonic() >= deadline:
+                    return None
+        except (OSError, ValueError):
             return None
         finally:
             s.close()
@@ -118,12 +139,14 @@ def ports_free(ports) -> bool:
 
 def build_libraries(device: str) -> Dict[str, float]:
     """Build, once in this process, every library a replica process
-    loads: the UDP transport's netio and the secrets manager's AES
-    (native/aescbc.cpp, which the TLS keys' PBES2 uses) with g++, and for
+    loads: the UDP transport's netio, the secrets manager's AES
+    (native/aescbc.cpp, which the TLS keys' PBES2 uses) and the storage
+    engine (native/kvlog.cpp, which `--db-dir` opens) with g++, and for
     "cuda" the kernel libraries with nvcc (one thread each) and the
-    native BLS engine. -> {library: seconds}. A failed kernel or aescbc
-    build raises; netio may be missing (the transport then runs its
-    scalar path, counted in comm/udp.FALLBACKS)."""
+    native BLS engine. -> {library: seconds}. A failed kernel, aescbc or
+    kvlog build raises (kvlog has no scalar path); netio may be missing
+    (the transport then runs its scalar path, counted in
+    comm/udp.FALLBACKS)."""
     from tpubft_torch.ops import _build
 
     def netio():
@@ -131,7 +154,8 @@ def build_libraries(device: str) -> Dict[str, float]:
             _build.load_host("netio")
         except _build.BuildError:
             pass
-    libs = {"netio": netio, "aescbc": lambda: _build.load_host("aescbc")}
+    libs = {"netio": netio, "aescbc": lambda: _build.load_host("aescbc"),
+            "kvlog": lambda: _build.load_host("kvlog")}
     if device != "cpu":
         from tpubft_torch.crypto import bls_native
         from tpubft_torch.ops import (bls12_381_cuda, ecdsa_cuda,
@@ -142,6 +166,38 @@ def build_libraries(device: str) -> Dict[str, float]:
                     ecdsa=ecdsa_cuda.library,
                     bls12381_native=bls_native.available)
     return _build.build_parallel(libs)
+
+
+def ledger_files(db_dir: str, replicas: Iterable[int]) -> dict:
+    """With the replicas stopped: each `db_dir/replica-<r>.kvlog` opened
+    with the port's NativeDB under the port's blockchain -> its size
+    (`bytes`), its `last_block_id`, the blocks compared
+    (1..min(last block id)) and the first of them whose raw bytes are
+    not equal in every file (`first_unequal_block`, None if all are).
+    Port addition (no reference counterpart)."""
+    from tpubft_torch.kvbc.blockchain import KeyValueBlockchain
+    from tpubft_torch.storage.native import NativeDB
+    dbs, chains, out = [], [], {"bytes": {}, "last_block_id": {}}
+    try:
+        for r in replicas:
+            path = os.path.join(db_dir, f"replica-{r}.kvlog")
+            out["bytes"][r] = os.path.getsize(path)
+            dbs.append(NativeDB(path))
+            chains.append(KeyValueBlockchain(dbs[-1],
+                                             use_device_hashing=False))
+            out["last_block_id"][r] = chains[-1].last_block_id
+        common = min(out["last_block_id"].values())
+        out["compared_blocks"] = common
+        out["first_unequal_block"] = None
+        for b in range(1, common + 1):
+            raws = {bc.get_raw_block(b) for bc in chains}
+            if len(raws) != 1 or None in raws:
+                out["first_unequal_block"] = b
+                break
+    finally:
+        for db in dbs:
+            db.close()
+    return out
 
 
 class BftTestNetwork:
@@ -163,8 +219,6 @@ class BftTestNetwork:
                  cfg_overrides: Optional[dict] = None,
                  device: str = "cuda",
                  log_dir: Optional[str] = None) -> None:
-        if db_dir is not None:
-            _not_ported("BftTestNetwork(db_dir=...)", "A.9.2")
         if pre_execution:
             _not_ported("BftTestNetwork(pre_execution=True)", "A.9.4")
         self.f, self.c = f, c
@@ -172,6 +226,7 @@ class BftTestNetwork:
         self.num_ro = num_ro
         self.num_clients = num_clients
         self.seed = seed
+        self.db_dir = db_dir
         self.view_change_timeout_ms = view_change_timeout_ms
         self.crypto_backend = crypto_backend
         self.checkpoint_window = checkpoint_window
@@ -189,8 +244,10 @@ class BftTestNetwork:
         self._set_base(base_port if base_port is not None
                        else self._free_base())
         # per-replica log files (replica-<r>.log, appended across
-        # restarts); None sends the replicas' output to /dev/null
-        self.log_dir = log_dir
+        # restarts), under db_dir when no log_dir is given (the
+        # reference's place, network.py:219-224); with neither, the
+        # replicas' output goes to /dev/null
+        self.log_dir = log_dir if log_dir is not None else db_dir
         # TLS material (see _tls_material); the directories this network
         # made, removed by stop_all and by the finalizer
         self.certs_dir: Optional[str] = None
@@ -246,20 +303,24 @@ class BftTestNetwork:
 
     def _tls_material(self) -> str:
         """Pinned-cert material for every principal (replicas, clients,
-        operator), like keygen --tls-certs, in a temporary directory of
-        this network's. Port divergence (reference network.py:108-122):
-        the reference asserts `db_dir` and writes under `db_dir/tls`; the
-        port refuses `db_dir` until A.9.2, so the network owns the
-        directory and stop_all removes it. The ids are the endpoints'
-        (clients from n + num_ro on, the reference's from n: the same
-        without read-only replicas)."""
+        operator), like keygen --tls-certs: under `db_dir/tls`, as the
+        reference writes it (network.py:108-122), where it stays after
+        stop_all. Port divergence: without `db_dir` (which the reference
+        asserts for TLS) the material goes to a temporary directory of
+        this network's, which stop_all removes. The ids are the
+        endpoints' (clients from n + num_ro on, the reference's from n:
+        the same without read-only replicas)."""
         if self.certs_dir is None:
             from tpubft_torch.comm.tls import generate_tls_material
             first_client = self.n + self.num_ro
             ids = (list(range(first_client + self.num_clients))
                    + [self._operator_id()])
-            self.certs_dir = tempfile.mkdtemp(prefix="bft-tls-")
-            self._tmp_dirs.append(self.certs_dir)
+            if self.db_dir is not None:
+                self.certs_dir = os.path.join(self.db_dir, "tls")
+                os.makedirs(self.certs_dir, exist_ok=True)
+            else:
+                self.certs_dir = tempfile.mkdtemp(prefix="bft-tls-")
+                self._tmp_dirs.append(self.certs_dir)
             generate_tls_material(self.certs_dir, ids, seed=None)
         return self.certs_dir
 
@@ -347,6 +408,8 @@ class BftTestNetwork:
             args += ["--config-override", f"{k}={v}"]
         if self.merkle:
             args += ["--merkle"]
+        if self.db_dir:
+            args += ["--db-dir", self.db_dir]
         if self.log_dir:
             os.makedirs(self.log_dir, exist_ok=True)
             out = open(os.path.join(self.log_dir, f"replica-{r}.log"), "ab")
@@ -391,7 +454,8 @@ class BftTestNetwork:
         for d in self._tmp_dirs:
             shutil.rmtree(d, ignore_errors=True)
         self._tmp_dirs.clear()
-        self.certs_dir = None
+        if self.db_dir is None:
+            self.certs_dir = None
 
     # ------------------------------------------------------------------
     # fault injection (Apollo kill/restart + partition analogs)
@@ -411,8 +475,9 @@ class BftTestNetwork:
     def restart_replica(self, r: int,
                         extra_args: Optional[List[str]] = None,
                         extra_env: Optional[Dict[str, str]] = None) -> None:
-        """Kill and start again. Without persistent DBs (A.9.2) the new
-        process starts with empty state and catches up by state
+        """Kill and start again. With `db_dir` the new process opens the
+        replica's own kvlog file and resumes from what it persisted;
+        without it, it starts with empty state and catches up by state
         transfer."""
         self.kill_replica(r)
         self.start_replica(r, extra_args=extra_args, extra_env=extra_env)
@@ -496,6 +561,27 @@ class BftTestNetwork:
 
     def last_executed(self, r: int) -> Optional[int]:
         return self.metrics(r).get("replica", "gauges", "last_executed_seq")
+
+    def first_answer(self, r: int, timeout: float = 120.0
+                     ) -> Tuple[int, float]:
+        """Poll replica r's metrics server from its (re)start until it
+        first answers -> (its last_executed_seq then, seconds from the
+        spawn). The gauge is set when the replica is built from its
+        ledger, before it serves: with `db_dir`, what it recovered from
+        its file. Raises AssertionError if the process exits first or
+        never answers. Port addition (no reference counterpart)."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            p = self.procs[r]
+            if p.poll() is not None:
+                raise AssertionError(f"replica {r} exited with "
+                                     f"{p.returncode} before it was up")
+            snap = self.metrics(r).snapshot(timeout=0.05)
+            if snap is not None:
+                return (snap["components"]["replica"]["gauges"][
+                    "last_executed_seq"],
+                    time.monotonic() - self._spawned_at[r])
+        raise AssertionError(f"replica {r} never answered")
 
     def current_view(self, r: int) -> Optional[int]:
         return self.metrics(r).get("replica", "gauges", "view")

@@ -1,0 +1,82 @@
+"""One checkout's process cluster phase in a fresh process, to compare
+two checkouts, or the in-memory and persistent clusters at one client
+count, on one card.
+
+    python3 tpubft_torch/tools/cluster_ab.py --tree DIR
+        --phase process_cluster|persistent_cluster [--clients N]
+
+Imports DIR's chip_smoke.py (DIR: a checkout of the repo, whose
+tpubft_torch is the one imported and the one its replica processes run)
+and runs the phase with `--clients` closed-loop clients (default: the
+phase's own); the phase builds the libraries it loads. process_cluster
+is given no in-process phase to stand beside (its beside_in_process
+numbers are null). The phase's own lines go to standard error. Prints
+one JSON line: the tree, the phase, the clients, its first load's
+requests/s, commit latency p50 / p99 and committed writes, the phase's
+wall seconds, and the card's name and power limit as nvidia-smi gives
+them. Run the checkouts in turns (A, B, B, A) in one call: a one-card
+machine shares its host, and a single pair can differ by chance.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import importlib
+import inspect
+import json
+import os
+import subprocess
+import sys
+
+PHASES = ("process_cluster", "persistent_cluster")
+# what process_cluster prints beside its own load, absent here
+NO_IN_PROCESS = {"load": {"requests_per_s": None, "commit_latency_ms": None},
+                 "config": {"clients": None}}
+
+
+def card() -> str:
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as exc:
+        return f"nvidia-smi failed: {exc}"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", required=True)
+    ap.add_argument("--phase", required=True, choices=PHASES)
+    ap.add_argument("--clients", type=int)
+    args = ap.parse_args(argv)
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    smoke = importlib.import_module("chip_smoke")
+    import torch
+    if not torch.cuda.is_available():
+        print("no CUDA device: the phases run on the card", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    fn = getattr(smoke, f"phase_{args.phase}")
+    kw = {} if args.clients is None else {"clients": args.clients}
+    if args.phase == "process_cluster":
+        kw["ledger_replica"] = NO_IN_PROCESS
+    clients = kw.get("clients",
+                     inspect.signature(fn).parameters["clients"].default)
+    with contextlib.redirect_stdout(sys.stderr):
+        out = fn(torch, dev, **kw)
+    load = out["load"]
+    print(json.dumps({
+        "tree": tree, "phase": args.phase, "clients": clients,
+        "requests_per_s": load["requests_per_s"],
+        "committed": load["committed"],
+        "p50_ms": load["commit_latency_ms"]["p50"],
+        "p99_ms": load["commit_latency_ms"]["p99"],
+        "wall_s": out["wall_s"], "card": card()}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
