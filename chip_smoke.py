@@ -144,7 +144,9 @@ line each; any failure exits non-zero:
            with every breaker closed and no verify degraded. Printed:
            requests/s, commit latency p50/p90/p99, each storm cycle
            (view, primary, writes committed), each process's view and
-           launches, each step's seconds;
+           launches, each replica's last views entered (`status get
+           views`: slots re-proposed, ms to the first execution), each
+           step's seconds;
   persistent_cluster
            config 1 as BASELINE.md's process rows deploy it, on
            persistent ledgers: four `skvbc_replica` processes from
@@ -167,9 +169,36 @@ line each; any failure exits non-zero:
            blockchain holding exactly the acknowledged writes, blocks
            equal raw bytes in the four files. Every process: signatures
            dispatched to the card, nothing degraded, healthy, no netio
-           fallback. Printed beside process_cluster's in-memory rate: the
-           load's rate and latency, each restart's seconds to up, the
-           catch-up, the file sizes;
+           fallback. Beside the four, one read-only replica process
+           (`apps.ro_replica --device cuda`, id 4) archives over SigV4 to
+           the port's testing.S3TestServer: once replica 3 is down and
+           the stable checkpoint is at 300 or past it, the RO has
+           transferred and archived up to it (its full windows digested
+           by the SHA-256 kernel, device_digest_batches > 0, host digests
+           only for partial windows), answers one signed READ_ONLY read
+           with the acknowledged value and ignores a forged one; after
+           stop_all every archived object equals replica 0's raw block
+           and digest. Printed beside process_cluster's in-memory rate:
+           the load's rate and latency, each restart's seconds to up,
+           the catch-up, the file sizes, the RO's anchor, blocks fetched
+           and archived, archive wait and read round trip;
+  v4_cluster
+           config 1 on the v4 ledger engine (`skvbc_replica
+           --kvbc-version v4`), as persistent_cluster runs it (four UDP
+           processes on their kvlog files, 16 clients, the reference's
+           windows 150 and 300, device_min_verify_batch 4): 600 writes
+           and 120 keys read back; replica 3 SIGKILLed and left behind
+           until the stable checkpoint is past the work window; the
+           port's snapshot CLI (`tools.snapshot --kvbc-version v4`)
+           creates a snapshot of its file, verifies it and restores it
+           into a fresh file that takes the kvlog's place; replica 3
+           restarts on it under load and fetches only the gap past the
+           snapshot's head (SHA-256 section calls); after stop_all the
+           four files open under the port's v4 engine with equal raw
+           blocks and digests. Printed: the load's rate and latency
+           beside persistent_cluster's, the snapshot's entries, bytes and
+           the CLI's seconds a command, blocks fetched, catch-up
+           seconds, each process's verify launches;
   bls_plane
            BLS certificates on the card: config 2's keys (n=7 f=2 c=0,
            threshold-bls, threshold 5) and 64 slots through
@@ -322,6 +351,7 @@ line each; any failure exits non-zero:
            decides the crossover; bls_msm_combine at the mesh
            phase's S=64 D=4 partials (config 4's S=1 D=4 beside it),
            its launches the mesh phase's sharded MSM routes;
+  timing   each phase's wall seconds;
   done     the script's wall time from the first phase on.
 
 Every cluster phase runs the autotuner at its default (a poll a second)
@@ -2091,6 +2121,27 @@ def _slot_stages(net, r: int) -> dict:
             for k, v in stages.items() if v["count"]}
 
 
+def _view_entries(net) -> dict:
+    """Each replica's last views entered (`status get views`: the view,
+    the slots its primary re-proposed, ms from entry to the first
+    execution there, null if none came) and, over all of them, the
+    entries that executed nothing and the largest time to a first
+    execution."""
+    by_replica = {}
+    for r in range(net.n):
+        text = net.status(r, "views")
+        by_replica[r] = [{k: e[k] for k in ("view", "reproposed",
+                                            "first_exec_ms")}
+                         for e in (json.loads(text) if text else [])]
+    times = [e["first_exec_ms"] for es in by_replica.values() for e in es
+             if e["first_exec_ms"] is not None]
+    return {"by_replica": by_replica,
+            "without_execution": sum(e["first_exec_ms"] is None
+                                     for es in by_replica.values()
+                                     for e in es),
+            "max_first_exec_ms": max(times, default=None)}
+
+
 def _print_log_tails(log_dir: str, lines: int = 60) -> None:
     """The last `lines` lines of each replica process's log, to stderr
     (a failed cluster phase's diagnosis)."""
@@ -2223,6 +2274,7 @@ def phase_tls_cluster(torch, dev, clients: int = 16, load_s: float = 60.0,
         for r, rep in reports.items():
             rep["slot_stages"] = _slot_stages(net, r)
         out["replicas"] = reports
+        out["view_entries"] = _view_entries(net)
         for r, rep in reports.items():
             if rep["view"] is None or rep["view"] < min_view_changes:
                 problems.append(f"replica {r}: view {rep['view']}, fewer "
@@ -2296,22 +2348,194 @@ def _fsync_probe_ms(path: str, reps: int = 5) -> list:
     return out
 
 
+def _ro_read(net, cid: int, rid: int, key: bytes, forged: bool,
+             timeout: float = 10.0):
+    """One READ_ONLY request for `key` from client `cid` straight to the
+    read-only replica `rid` over the network's transport, signed with the
+    client's key (or a zero signature where `forged`) -> (the value its
+    reply carries or None without a reply, the round-trip ms)."""
+    import threading
+
+    from tpubft_torch.apps import skvbc
+    from tpubft_torch.apps.simple_test import endpoint_table
+    from tpubft_torch.comm.interfaces import IReceiver
+    from tpubft_torch.consensus import messages as m
+    from tpubft_torch.consensus.keys import ClusterKeys
+    from tpubft_torch.crypto.cpu import Ed25519Signer
+    keys = ClusterKeys.generate(net._node_cfg(), net.num_clients,
+                                seed=net.seed.encode()).for_node(cid)
+    req = m.ClientRequestMsg(
+        sender_id=cid, req_seq_num=int(time.time() * 1e6),
+        flags=int(m.RequestFlag.READ_ONLY),
+        request=skvbc.pack(skvbc.ReadRequest(read_version=skvbc.READ_LATEST,
+                                             keys=[key])),
+        cid=f"ro-read-{cid}", signature=bytes(64))
+    if not forged:
+        req.signature = Ed25519Signer.generate(
+            seed=keys.my_sign_seed).sign(req.signed_payload())
+    got = threading.Event()
+    replies = []
+
+    class _Sink(IReceiver):
+        def on_new_message(self, sender, data):
+            if sender == rid:
+                replies.append(data)
+                got.set()
+    comm = net._make_comm(cid, endpoint_table(
+        net.base_port, net.n + net.num_ro, net.num_clients))
+    comm.start(_Sink())
+    try:
+        t0 = time.perf_counter()
+        comm.send(rid, req.pack())
+        got.wait(timeout)
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        comm.stop()
+    if not replies:
+        return None, ms
+    reply = m.unpack(replies[0])
+    return dict(skvbc.unpack(reply.reply).reads).get(key), ms
+
+
+def _ro_follows(net, rid: int, up, min_anchor: int, timeout: float) -> dict:
+    """Wait until the read-only replica `rid` has transferred and
+    archived up to the last stable checkpoint of the replicas `up` (the
+    load stopped: no checkpoint comes after it), at `min_anchor` or past
+    it; -> its gauges then. Raises on the deadline."""
+    gauges = {}
+
+    def archived():
+        stable = [net.metrics(r).get("replica", "gauges", "last_stable_seq")
+                  for r in up]
+        g = (net.metrics(rid).snapshot(timeout=1.0) or {}).get(
+            "components", {}).get("ro_replica", {}).get("gauges", {})
+        gauges.clear()
+        gauges.update(g, cluster_stable=stable)
+        if None in stable:
+            return False
+        anchor = g.get("last_anchor_seq", 0)
+        return (anchor >= max(min_anchor, max(stable))
+                and g.get("transferred_seq") == anchor
+                and g.get("archived_to") == g.get("last_block") > 0)
+    try:
+        net.wait_for(archived, timeout=timeout, poll=0.1)
+    except TimeoutError:
+        raise AssertionError(f"the RO archive never reached the cluster's "
+                             f"stable checkpoint: {gauges}")
+    return dict(gauges)
+
+
+def _ro_report(net, rid: int, gauges: dict, checkpoint_window: int,
+               problems: list) -> dict:
+    """The read-only replica's state transfer, archive and device work,
+    read over its metrics and diagnostics servers (it runs no consensus:
+    no health section); its problems go to `problems`."""
+    from tpubft_torch.utils.config import ReplicaConfig
+    snap = net.metrics(rid).snapshot(timeout=5.0) or {}
+    comps = snap.get("components", {})
+    st = comps.get("state_transfer", {})
+    counters = st.get("counters", {})
+    devinfo = json.loads(net.status(rid, "device"))
+    kernels = json.loads(net.status(rid, "kernels"))
+    ro = {"anchor_seq": gauges["last_anchor_seq"],
+          "last_block": gauges["last_block"],
+          "archived_to": gauges["archived_to"],
+          "blocks_fetched": counters.get("blocks_fetched"),
+          "device_digest_batches": counters.get("device_digest_batches"),
+          "scalar_digests": counters.get("scalar_digests"),
+          "device_digest_failures": counters.get("device_digest_failures"),
+          "st_blocks_per_sec_gauge": st.get("gauges", {}).get(
+              "st_blocks_per_sec"),
+          "launches": {k: v for k, v in devinfo["launches"].items() if v},
+          "section_calls": {k: v["calls"] for k, v in kernels.items()},
+          "device": devinfo["device"],
+          "memory_reserved": devinfo["memory_reserved"],
+          "netio_fallbacks": comps.get("udp", {}).get("counters", {}).get(
+              "netio_fallbacks")}
+    ro["sha256_launches"] = ro["launches"].get("sha256", 0)
+    # the RO's state transfer hashes a window below this many blocks on
+    # the host: at most one partial window a transfer, one a checkpoint
+    threshold = ReplicaConfig().st_device_digest_threshold
+    transfers = max(1, gauges["last_anchor_seq"] // checkpoint_window)
+    if not ro["device_digest_batches"]:
+        problems.append("the RO digested no window on the card")
+    if (ro["scalar_digests"] or 0) >= threshold * transfers:
+        problems.append(f"the RO hashed {ro['scalar_digests']} blocks on "
+                        "the host")
+    if ro["sha256_launches"] < (ro["device_digest_batches"] or 1):
+        problems.append(f"RO sha256 launches {ro['launches']}")
+    if ro["device_digest_failures"] or ro["netio_fallbacks"]:
+        problems.append(f"RO: {ro['device_digest_failures']} device digest "
+                        f"failures, {ro['netio_fallbacks']} netio fallbacks")
+    if not str(ro["device"]).startswith("cuda"):
+        problems.append(f"the RO ran on {ro['device']}")
+    return ro
+
+
+def _ro_audit(audit, db_path: str, key: bytes, value, last_block: int,
+              problems: list) -> dict:
+    """The archive in the object store `audit` against the replica's
+    kvlog at `db_path` (ReadOnlyReplica.verify_archive's checks): every
+    `blocks/` object is the replica's raw block, its `digests/` object
+    that block's digest and the SHA-256 of the object, the blocks
+    contiguous from 1; and the RO's answer `value` for `key` is the
+    replica's as of `last_block`."""
+    import hashlib
+
+    from tpubft_torch.kvbc import create_blockchain
+    from tpubft_torch.kvbc.readonly import digest_key
+    from tpubft_torch.storage.native import NativeDB
+    keys = list(audit.list("blocks/"))
+    ok = bad = 0
+    db = NativeDB(db_path)
+    try:
+        bc = create_blockchain(db, use_device_hashing=False)
+        for k in keys:
+            b = int(k.split("/")[1])
+            raw, dig = audit.get(k), audit.get(digest_key(b))
+            if (raw is None or dig is None or raw != bc.get_raw_block(b)
+                    or dig != bc.block_digest(b)
+                    or hashlib.sha256(raw).digest() != dig):
+                bad += 1
+            else:
+                ok += 1
+        head = bc.last_block_id
+        want = bc.get_versioned("kv", key, last_block)
+    finally:
+        db.close()
+    if value != want:
+        problems.append(f"RO read {value!r} for {key!r}, the replica's "
+                        f"ledger {want!r} at block {last_block}")
+    if bad or ok < last_block or ok == 0 or keys != [
+            f"blocks/{b:020d}" for b in range(1, len(keys) + 1)]:
+        problems.append(f"archive audit: {ok} verified, {bad} failed, "
+                        f"{len(keys)} objects")
+    return {"objects": len(keys), "verified": ok, "failures": bad,
+            "replica0_head": head, "read_equal_to_acknowledged":
+                value == want}
+
+
 def phase_persistent_cluster(torch, dev, process_cluster=None,
                              clients: int = 16, target: int = 600,
                              reads: int = 120, more: int = 200,
                              device_min_verify_batch: int = 4,
                              checkpoint_window: int = 150,
-                             work_window: int = 300,
+                             work_window: int = 300, min_anchor: int = 300,
                              budget_s: float = 150.0) -> dict:
     """Config 1 as BASELINE.md's process rows deploy it, on persistent
-    ledgers (benchmarks/bench_e2e.py:284-287 runs them with db_dir): four
-    replica OS processes over UDP from testing.BftTestNetwork(db_dir=...)
+    ledgers (benchmarks/bench_e2e.py:284-287 runs them with db_dir),
+    with one read-only replica archiving the chain: four replica OS
+    processes over UDP from testing.BftTestNetwork(db_dir=..., num_ro=1)
     on the card, each with its own kvlog (replica-<id>.kvlog, the port's
     NativeDB over native/kvlog.cpp) in a temporary directory, every
     setting at ReplicaConfig()'s defaults (db_sync_writes off, the
     consensus-metadata families fsynced) but `device_min_verify_batch`
     4, as process_cluster and for its reason. `clients` closed-loop
-    SkvbcClients in this process write kvbcbench blocks.
+    SkvbcClients in this process write kvbcbench blocks. Beside them one
+    `python -m tpubft_torch.apps.ro_replica --device cuda` process (id
+    4, BftTestNetwork.start_ro_replica) archives over SigV4 to the
+    port's testing.S3TestServer, started in this process (the secret in
+    the RO's environment, never on its command line).
 
     1. Where the files live: the DB directory's filesystem type
        (/proc/mounts) and the ms of 4 KiB write + fsync probes there.
@@ -2319,24 +2543,40 @@ def phase_persistent_cluster(torch, dev, process_cluster=None,
        chosen by the seed read back; the four last_executed agree.
     3. Replica 3 is SIGKILLed; the load goes on until the others'
        stable checkpoint is more than the work window past replica 3's
-       last_executed; replica 3 restarts on its own file while the load
-       goes on. Its first metrics read must be its last_executed from
-       before the kill (not 0); it catches up by state transfer (its
-       SHA-256 section has calls); it fetches no block it kept: at
-       most the blocks committed since the kill (within the gap plus
-       one checkpoint window, and well below the others' height, which
-       an empty restart would fetch); the four last_executed agree.
-    4. The load stops; all four processes are SIGKILLed at once and
-       restarted on their files: each first reads back its
+       last_executed (and at `min_anchor` or past it).
+    4. The read-only replica (anchored on f+1 matching signed
+       checkpoints, fetching each anchor's blocks by state transfer,
+       its full windows digested on the card) has transferred and
+       archived up to that stable checkpoint. One signed READ_ONLY
+       request, from a client id that is not writing, for a key of
+       client 0's first write: the RO answers it with the value
+       acknowledged as of its last block (read from replica 0's file
+       after the run) and `served_reads` is 1; a forged read (a zero
+       signature) gets no answer and `served_reads` stays 1. Its
+       state_transfer `device_digest_batches` > 0, `scalar_digests`
+       below the device threshold a transfer, its SHA-256 launches at
+       least its device windows, no device digest failure, no netio
+       fallback. The RO stops here (no checkpoint forms while the load
+       is stopped, so it is idle).
+    5. Replica 3 restarts on its own file while the load goes on. Its
+       first metrics read must be its last_executed from before the
+       kill (not 0); it catches up by state transfer (its SHA-256
+       section has calls); it fetches no block it kept: at most the
+       blocks committed since the kill (within the gap plus one
+       checkpoint window, and well below the others' height, which an
+       empty restart would fetch); the four last_executed agree.
+    6. The load stops; all four replica processes are SIGKILLed at once
+       and restarted on their files: each first reads back its
        last_executed from before; every sampled acknowledged key and
        the last acknowledged write of every client read back; `more`
        writes commit; the four last_executed agree.
-    5. After stop_all this process opens each kvlog file with the port's
+    7. After stop_all this process opens each kvlog file with the port's
        NativeDB under the port's blockchain (testing.network.
        ledger_files): every ledger holds exactly the acknowledged writes
        and blocks 1..min(last block id) are equal raw bytes in the four
-       files.
-    6. From every process (metrics and diagnostics servers), as
+       files. An independent S3ObjectStore lists the archive: every
+       object equals replica 0's raw block and digest (0 failures).
+    8. From every replica process (metrics and diagnostics servers), as
        process_cluster reads them: signatures dispatched to the device,
        no degraded verify, health healthy with every breaker closed, a
        verify device section, no netio fallback, each wrapper's
@@ -2345,31 +2585,42 @@ def phase_persistent_cluster(torch, dev, process_cluster=None,
     Printed beside process_cluster's in-memory rate (same run): the
     first load's rate and latency, each restart's seconds to up,
     replica 3's recovered last_executed, blocks fetched and catch-up
-    seconds, and the file sizes. The verify and SHA-256 launches are
-    summed over every process before each kill and at the end."""
+    seconds, and the file sizes; under `ro_replica` the anchor seq, the
+    blocks fetched and archived, the seconds from the load's end until
+    the archive reached the anchor, the device digest batches and the
+    read's round-trip ms. The verify and SHA-256 launches are summed
+    over every replica process before each kill and at the end; the
+    RO's SHA-256 launches apart."""
     import shutil
     import signal
     import tempfile
 
     import numpy as np
 
+    from tpubft_torch.storage.s3 import S3ObjectStore
     from tpubft_torch.testing.network import BftTestNetwork, ledger_files
+    from tpubft_torch.testing.s3server import S3TestServer
 
     t_phase = time.monotonic()
     db_dir = tempfile.mkdtemp(prefix="chip-smoke-persist-")
+    ak, sk = "chip-smoke-ak", "chip-smoke-sk"
+    s3 = S3TestServer(access_key=ak, secret_key=sk).start()
     try:
         out = {"phase": "persistent_cluster", "n": 4, "f": 1,
                "clients": clients, "transport": "udp",
                "checkpoint_window": checkpoint_window,
                "work_window": work_window,
                "device_min_verify_batch": device_min_verify_batch,
+               "num_ro": 1, "archive": "s3 (SigV4)",
+               "min_anchor": min_anchor,
                "db_fs": _fs_type(db_dir),
                "fsync_probe_ms": _fsync_probe_ms(db_dir)}
         emit({"phase": "persistent_cluster", "step": "files",
               "db_fs": out["db_fs"],
               "fsync_probe_ms": out["fsync_probe_ms"]})
         log_dir = os.path.join(db_dir, "logs")
-        net = BftTestNetwork(f=1, num_clients=clients,
+        # one client principal more than write: the read-only request's
+        net = BftTestNetwork(f=1, num_clients=clients + 1, num_ro=1,
                              seed="chip-smoke-persist", device="cuda",
                              db_dir=db_dir, log_dir=log_dir,
                              checkpoint_window=checkpoint_window,
@@ -2381,7 +2632,12 @@ def phase_persistent_cluster(torch, dev, process_cluster=None,
         try:
             t0 = time.monotonic()
             cl.start()
-            steps["start"] = time.monotonic() - t0
+            rid = net.start_ro_replica(
+                0, extra_args=["--s3-endpoint", s3.endpoint,
+                               "--s3-bucket", "archive",
+                               "--s3-access-key", ak],
+                extra_env={"TPUBFT_S3_SECRET": sk})
+            steps["start"] = time.monotonic() - t0   # the RO comes up
 
             # ---- 2. load, read-back ----
             t0 = time.monotonic()
@@ -2391,11 +2647,50 @@ def phase_persistent_cluster(torch, dev, process_cluster=None,
             blocks_at_kill = sum(writes.next_write)
             earlier.append(_replica_report(net, 3))   # its counts die with it
 
-            # ---- 3. replica 3 crashes, restarts on its own file ----
+            # ---- 3. replica 3 crashes ----
             t0 = time.monotonic()
-            behind = cl.kill_behind(3, min_stable=le[3] + net.work_window + 1,
-                                    min_writes=0, budget_s=budget_s * 0.4)
+            behind = cl.kill_behind(
+                3, min_stable=max(le[3] + net.work_window + 1, min_anchor),
+                min_writes=0, budget_s=budget_s * 0.4)
             steps["behind"] = time.monotonic() - t0
+
+            # ---- 4. the read-only replica ----
+            t0 = time.monotonic()
+            net.wait_for_replicas_up(replicas=[rid], timeout=120)
+            gauges = _ro_follows(net, rid, (0, 1, 2), min_anchor,
+                                 timeout=budget_s * 0.3)
+            steps["ro_archive_wait"] = time.monotonic() - t0
+            # a key of client 0's first write: on the RO's chain, which
+            # ends at its anchor's block
+            ro_key = b"c000/" + writes.rows[0][0][1]
+            reader = net.n + net.num_ro + clients    # never writes
+            value, read_ms = _ro_read(net, reader, rid, ro_key,
+                                      forged=False)
+            served = net.metrics(rid).get("ro_replica", "counters",
+                                          "served_reads")
+            forged_value, _ = _ro_read(net, reader, rid, ro_key,
+                                       forged=True, timeout=1.0)
+            served_after = net.metrics(rid).get("ro_replica", "counters",
+                                                "served_reads")
+            ro = out["ro_replica"] = _ro_report(net, rid, gauges,
+                                                checkpoint_window, problems)
+            ro.update(archive_wait_s=steps["ro_archive_wait"],
+                      read={"key": ro_key.decode(),
+                            "round_trip_ms": read_ms,
+                            "served_reads": served,
+                            "forged_answered": forged_value is not None,
+                            "served_reads_after_forged": served_after})
+            net.kill_replica(rid)
+            emit({"phase": "persistent_cluster", "step": "ro_replica",
+                  **ro})
+            if value is None or served != 1:
+                problems.append(f"RO read: {value!r} for {ro_key!r}, "
+                                f"served_reads {served}")
+            if forged_value is not None or served_after != 1:
+                problems.append(f"the RO answered a forged read "
+                                f"({served_after} served)")
+
+            # ---- 5. replica 3 restarts on its own file ----
             one = cl.restart_under_load(3, min_fetched=1,
                                         min_seq=behind["stable"],
                                         budget_s=budget_s * 0.3)
@@ -2431,12 +2726,12 @@ def phase_persistent_cluster(torch, dev, process_cluster=None,
                                 f"gap was {height - blocks_at_kill} of "
                                 f"{height}")
 
-            # ---- 4. the whole cluster crashes ----
+            # ---- 6. the whole cluster crashes ----
             t0 = time.monotonic()
             earlier += [_replica_report(net, r) for r in range(4)]
             le_before = _equal_last_executed(net, range(4), timeout=30)
-            for p in net.procs.values():
-                p.send_signal(signal.SIGKILL)
+            for r in range(4):
+                net.procs[r].send_signal(signal.SIGKILL)
             for r in range(4):
                 net.kill_replica(r)
             for r in range(4):
@@ -2478,7 +2773,7 @@ def phase_persistent_cluster(torch, dev, process_cluster=None,
                 problems.append(f"after the crash {after['committed']} of "
                                 f"{more} writes, {cl.loop.errors[:3]}")
 
-            # ---- 6. what each process ran ----
+            # ---- 8. what each process ran ----
             reports = {r: _replica_report(net, r) for r in range(4)}
             out["replicas"] = reports
             cl.check_processes(reports, earlier=earlier)
@@ -2487,7 +2782,7 @@ def phase_persistent_cluster(torch, dev, process_cluster=None,
             if problems or sys.exc_info()[0] is not None:
                 _print_log_tails(log_dir)
 
-        # ---- 5. the files themselves ----
+        # ---- 7. the files and the archive ----
         files = ledger_files(db_dir, range(4))
         out["files"] = files
         acked = sum(writes.next_write)
@@ -2497,7 +2792,15 @@ def phase_persistent_cluster(torch, dev, process_cluster=None,
         if files["first_unequal_block"] is not None:
             problems.append(f"block {files['first_unequal_block']} differs "
                             "between the replicas' files")
+        ro["audit"] = _ro_audit(
+            S3ObjectStore(s3.endpoint, "archive", access_key=ak,
+                          secret_key=sk),
+            os.path.join(db_dir, "replica-0.kvlog"), ro_key, value,
+            ro["last_block"], problems)
+        emit({"phase": "persistent_cluster", "step": "ro_audit",
+              **ro["audit"]})
     finally:
+        s3.stop()
         shutil.rmtree(db_dir, ignore_errors=True)
     if process_cluster is not None:
         out["beside_in_memory"] = {
@@ -2509,6 +2812,200 @@ def phase_persistent_cluster(torch, dev, process_cluster=None,
             "in_memory_commit_latency_ms": process_cluster["load"][
                 "commit_latency_ms"],
             "in_memory_clients": process_cluster["clients"]}
+    return cl.finish(t_phase)
+
+
+def _snapshot_cli(*argv) -> tuple:
+    """One command of the port's snapshot CLI (python -m
+    tpubft_torch.tools.snapshot ... --kvbc-version v4) -> (its JSON line,
+    its seconds); raises if it fails."""
+    from tpubft_torch.apps.simple_test import child_env
+    t0 = time.monotonic()
+    out = subprocess.run(
+        [sys.executable, "-m", "tpubft_torch.tools.snapshot", *argv,
+         "--kvbc-version", "v4"], capture_output=True, text=True,
+        timeout=300, cwd=HERE, env=child_env())
+    s = time.monotonic() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"snapshot {argv[0]}: exit {out.returncode}: "
+                             f"{out.stdout[-400:]} {out.stderr[-800:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1]), s
+
+
+def phase_v4_cluster(torch, dev, persistent_cluster=None,
+                     clients: int = 16, target: int = 600,
+                     reads: int = 120, device_min_verify_batch: int = 4,
+                     checkpoint_window: int = 150, work_window: int = 300,
+                     budget_s: float = 150.0) -> dict:
+    """Config 1 on the v4 ledger engine (--kvbc-version v4), with snapshot
+    provisioning: persistent_cluster's four replica processes on their
+    own kvlog files, over UDP on the card, `clients` closed-loop
+    SkvbcClients writing kvbcbench blocks, device_min_verify_batch 4,
+    the checkpoint and work windows at their defaults.
+
+    1. Load until `target` writes commit; `reads` acknowledged keys
+       chosen by the seed read back; the four last_executed agree.
+    2. Replica 3 is SIGKILLed; the load goes on until the others' stable
+       checkpoint is more than the work window past replica 3's
+       last_executed.
+    3. The port's snapshot CLI (python -m tpubft_torch.tools.snapshot
+       --kvbc-version v4) on replica 3's file: `create`, then `verify`
+       ("ok": true) and `restore` into a fresh file ("digest_ok": true)
+       side by side (both only read the snapshot), the restored file
+       taking the kvlog's place.
+    4. Replica 3 restarts on the provisioned ledger while the load goes
+       on. The snapshot leaves out the consensus metadata, so it starts
+       at last_executed 0 with the snapshot's blocks; it catches up by
+       state transfer (its SHA-256 section has calls), fetching only the
+       gap: no more blocks than were committed after the snapshot's head,
+       and fewer than the others' height. The four last_executed agree
+       and every sampled key reads back.
+    5. After stop_all the four files open under the port's v4 engine
+       (testing.network.ledger_files): every block's raw bytes and digest
+       equal in the four, up to the shortest head, which holds every
+       acknowledged write.
+    6. From every process, as process_cluster reads them: signatures
+       dispatched to the card, no degraded verify, health healthy with
+       every breaker closed, a verify device section, no netio fallback,
+       each wrapper's launches (the verify launches of each process are
+       printed).
+
+    Printed: requests/s and commit latency p50/p90/p99 (beside
+    persistent_cluster's on the categorized engine), the snapshot's
+    entries and bytes and the CLI's seconds a command, the blocks
+    fetched and the catch-up seconds, each step's seconds."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpubft_torch.testing.network import BftTestNetwork, ledger_files
+
+    t_phase = time.monotonic()
+    db_dir = tempfile.mkdtemp(prefix="chip-smoke-v4-")
+    try:
+        out = {"phase": "v4_cluster", "n": 4, "f": 1, "clients": clients,
+               "transport": "udp", "kvbc_version": "v4",
+               "checkpoint_window": checkpoint_window,
+               "work_window": work_window,
+               "device_min_verify_batch": device_min_verify_batch}
+        log_dir = os.path.join(db_dir, "logs")
+        net = BftTestNetwork(f=1, num_clients=clients, seed="chip-smoke-v4",
+                             device="cuda", db_dir=db_dir, log_dir=log_dir,
+                             checkpoint_window=checkpoint_window,
+                             work_window=work_window,
+                             device_min_verify_batch=device_min_verify_batch,
+                             kvbc_version="v4")
+        cl = _ProcessCluster("v4_cluster", net, clients, out)
+        problems, earlier = cl.problems, []
+        steps = out["steps_s"] = {}
+        try:
+            t0 = time.monotonic()
+            cl.start()
+            steps["start"] = time.monotonic() - t0
+
+            # ---- 1. load, read-back ----
+            t0 = time.monotonic()
+            le = cl.load(target, reads, seed=17, budget_s=budget_s * 0.15)
+            steps["load"] = time.monotonic() - t0
+            writes = cl.writes
+            earlier.append(_replica_report(net, 3))   # its counts die with it
+
+            # ---- 2. replica 3 crashes and falls behind ----
+            t0 = time.monotonic()
+            behind = cl.kill_behind(3, min_stable=le[3] + net.work_window + 1,
+                                    min_writes=0, budget_s=budget_s * 0.4)
+            steps["behind"] = time.monotonic() - t0
+
+            # ---- 3. snapshot provisioning ----
+            path = os.path.join(db_dir, "replica-3.kvlog")
+            snap = os.path.join(db_dir, "replica-3.snap")
+            made, create_s = _snapshot_cli("create", path, snap)
+            with ThreadPoolExecutor(2) as pool:
+                verifying = pool.submit(_snapshot_cli, "verify", snap)
+                restoring = pool.submit(_snapshot_cli, "restore", snap,
+                                        path + ".provisioned")
+                checked, verify_s = verifying.result()
+                restored, restore_s = restoring.result()
+            out["snapshot"] = {
+                "head_block": made["head_block"], "entries": made["entries"],
+                "bytes": os.path.getsize(snap),
+                "kvlog_bytes": os.path.getsize(path + ".provisioned"),
+                "verify_ok": checked["ok"],
+                "digest_ok": restored["digest_ok"],
+                "cli_s": {"create": create_s, "verify": verify_s,
+                          "restore": restore_s}}
+            emit({"phase": "v4_cluster", "step": "snapshot",
+                  **out["snapshot"]})
+            if checked["ok"] is not True or restored["digest_ok"] is not True:
+                raise AssertionError(f"snapshot: verify {checked}, restore "
+                                     f"{restored}")
+            os.replace(path + ".provisioned", path)
+
+            # ---- 4. restart on the provisioned ledger ----
+            one = cl.restart_under_load(3, min_fetched=1,
+                                        min_seq=behind["stable"],
+                                        budget_s=budget_s * 0.3)
+            steps["restart"] = one["catch_up_s"]
+            rep3 = _replica_report(net, 3)
+            height = sum(writes.next_write)
+            fetched = rep3["blocks_fetched"] or 0
+            wrong = cl.read_back(cl.sample)
+            one.update(snapshot_head_block=made["head_block"],
+                       blocks_fetched=fetched, height_after=height,
+                       gap_blocks=height - made["head_block"],
+                       device_digest_windows=rep3["device_digest_batches"],
+                       sha256_section_calls=rep3["section_calls"].get(
+                           "sha256"),
+                       read_back={"keys": len(cl.sample),
+                                  "wrong": len(wrong)})
+            out["restart"] = one
+            emit({"phase": "v4_cluster", "step": "restart", **one})
+            if one["first_read_last_executed"] != 0:
+                problems.append(f"the provisioned replica 3 came back at "
+                                f"{one['first_read_last_executed']}, not 0")
+            if not rep3["section_calls"].get("sha256"):
+                problems.append("replica 3 ran no SHA-256 section")
+            if not 0 < fetched <= height - made["head_block"] \
+                    or fetched >= height:
+                problems.append(f"replica 3 fetched {fetched} blocks: the "
+                                f"gap was {height - made['head_block']} of "
+                                f"{height}")
+            if wrong:
+                problems.append(f"{len(wrong)} sampled keys read back wrong "
+                                "after the restart")
+
+            # ---- 6. what each process ran ----
+            reports = {r: _replica_report(net, r) for r in range(4)}
+            out["replicas"] = reports
+            out["verify_launches_by_process"] = {
+                r: rep["launches"].get("ed25519_verify", 0)
+                for r, rep in reports.items()}
+            cl.check_processes(reports, earlier=earlier)
+        finally:
+            net.stop_all()
+            if problems or sys.exc_info()[0] is not None:
+                _print_log_tails(log_dir)
+
+        # ---- 5. the files themselves ----
+        files = ledger_files(db_dir, range(4), version="v4")
+        out["files"] = files
+        acked = sum(writes.next_write)
+        if min(files["last_block_id"].values()) != acked:
+            problems.append(f"ledgers hold {files['last_block_id']} "
+                            f"blocks, {acked} writes were acknowledged")
+        if files["first_unequal_block"] is not None:
+            problems.append(f"block {files['first_unequal_block']} differs "
+                            "between the replicas' files")
+    finally:
+        shutil.rmtree(db_dir, ignore_errors=True)
+    if persistent_cluster is not None:
+        out["beside_categorized"] = {
+            "v4_requests_per_s": out["load"]["requests_per_s"],
+            "v4_commit_latency_ms": out["load"]["commit_latency_ms"],
+            "categorized_requests_per_s": persistent_cluster["load"][
+                "requests_per_s"],
+            "categorized_commit_latency_ms": persistent_cluster["load"][
+                "commit_latency_ms"]}
     return cl.finish(t_phase)
 
 
@@ -4454,9 +4951,9 @@ def sha256_rate_row(torch, dev, b: int, sm_clock_mhz: float) -> dict:
 
 
 def phase_kernels(torch, dev, plane, replica, ledger_replica,
-                  process_cluster, tls_cluster, persistent_cluster, kernel,
-                  ladder, ledger, digest, bls_plane, bls_ledger,
-                  ecdsa_plane, ecdsa_ledger, offload, mesh,
+                  process_cluster, tls_cluster, persistent_cluster,
+                  v4_cluster, kernel, ladder, ledger, digest, bls_plane,
+                  bls_ledger, ecdsa_plane, ecdsa_ledger, offload, mesh,
                   sm_clock_mhz) -> dict:
     """Every kernel, timed at its path's shape: the verify kernel at one
     PrePrepare drain of 100 signatures, the ladder kernels at the ladder's
@@ -4480,13 +4977,14 @@ def phase_kernels(torch, dev, plane, replica, ledger_replica,
            "source": "tpubft_torch/ops/csrc/ed25519_verify.cu",
            "replaces": "tpubft/ops/ed25519_pallas.py:421",
            # the main path's runs: the plane, the two in-process
-           # clusters and the replica processes (configs 1 and 5, and
-           # config 1 on persistent ledgers)
+           # clusters and the replica processes (configs 1 and 5, config
+           # 1 on persistent ledgers and on the v4 engine)
            "launches": plane["launches"]["ed25519_verify"]
            + replica["verify_launches"] + ledger_replica["verify_launches"]
            + process_cluster["verify_launches"]
            + tls_cluster["verify_launches"]
-           + persistent_cluster["verify_launches"],
+           + persistent_cluster["verify_launches"]
+           + v4_cluster["verify_launches"],
            "launches_by_path": {
                "plane": plane["launches"]["ed25519_verify"],
                "replica": replica["verify_launches"],
@@ -4494,6 +4992,7 @@ def phase_kernels(torch, dev, plane, replica, ledger_replica,
                "process_cluster": process_cluster["verify_launches"],
                "tls_cluster": tls_cluster["verify_launches"],
                "persistent_cluster": persistent_cluster["verify_launches"],
+               "v4_cluster": v4_cluster["verify_launches"],
                "ladder": next(r["launches"] for r in ladder["rungs"]
                               if r["kernel"] == "ed25519_verify")},
            "replica_signatures_per_launch":
@@ -4533,7 +5032,7 @@ def phase_kernels(torch, dev, plane, replica, ledger_replica,
                 "mismatches_vs_plain")}
     rows.append(sha256_kernel_row(torch, dev, ledger_replica,
                                   process_cluster, persistent_cluster,
-                                  ledger, digest, sm_clock_mhz))
+                                  v4_cluster, ledger, digest, sm_clock_mhz))
     rows += bls_kernel_rows(torch, dev, bls_plane, bls_ledger, offload,
                             sm_clock_mhz)
     rows += ecdsa_kernel_rows(torch, dev, ecdsa_plane, ecdsa_ledger, offload,
@@ -4570,7 +5069,7 @@ LADDER_REPLACES = {
 
 
 def sha256_kernel_row(torch, dev, ledger_replica, process_cluster,
-                      persistent_cluster, ledger, digest,
+                      persistent_cluster, v4_cluster, ledger, digest,
                       sm_clock_mhz) -> dict:
     """The SHA-256 kernel at the shape the main path launched it: one
     full window (64 raw blocks) that the ledger replica's catch-up
@@ -4578,9 +5077,11 @@ def sha256_kernel_row(torch, dev, ledger_replica, process_cluster,
     against the plain version on the digest phase's first window, its
     mixed window and a 1024-node Merkle level. Launches are the ledger
     replica's catch-up windows, the restarted replica processes' (empty
-    in process_cluster, on their kvlog files in persistent_cluster) and
-    the digest phase's (the migrate-chunk ledger launched none), the
-    stress ledger's beside them."""
+    in process_cluster, on their kvlog files in persistent_cluster, on a
+    snapshot-provisioned v4 ledger in v4_cluster), the read-only replica
+    process's fetched windows (in persistent_cluster) and the digest
+    phase's (the migrate-chunk ledger launched none), the stress
+    ledger's beside them."""
     import hashlib
 
     from tpubft_torch.ops import sha256 as sha
@@ -4610,13 +5111,19 @@ def sha256_kernel_row(torch, dev, ledger_replica, process_cluster,
             "replaces": "tpubft/ops/sha256.py:82 (and :178)",
             "launches": ledger_replica["sha256_launches"]
             + process_cluster["sha256_launches"]
-            + persistent_cluster["sha256_launches"] + digest["launches"]
+            + persistent_cluster["sha256_launches"]
+            + v4_cluster["sha256_launches"]
+            + persistent_cluster["ro_replica"]["sha256_launches"]
+            + digest["launches"]
             + ledger["migrate_chunks"]["sha256_launches"],
             "launches_by_path": {
                 "ledger_replica_catch_up": ledger_replica["sha256_launches"],
                 "process_cluster_catch_up":
                     process_cluster["sha256_launches"],
                 "persistent_cluster": persistent_cluster["sha256_launches"],
+                "v4_cluster": v4_cluster["sha256_launches"],
+                "ro_replica": persistent_cluster["ro_replica"][
+                    "sha256_launches"],
                 "digest": digest["launches"],
                 "migrate_chunks": ledger["migrate_chunks"]["sha256_launches"]},
             "stress_launches": ledger["stress"]["sha256_launches"],
@@ -4771,6 +5278,16 @@ def main() -> int:
     torch.cuda.set_device(dev)
     t_start = time.monotonic()
     info = phase_device(torch)
+    # each phase's wall seconds, printed before `done`
+    phase_s = {"device": time.monotonic() - t_start}
+
+    def timed(name, fn, *args):
+        t0 = time.monotonic()
+        try:
+            return fn(*args)
+        finally:
+            phase_s[name] = time.monotonic() - t0
+
     clock = info["clocks_max_sm_mhz"]
     if sys.argv[1:] == ["--mesh"]:
         # the mesh phase alone: over the host's cards where it has
@@ -4779,28 +5296,37 @@ def main() -> int:
         emit({"phase": "done", "wall_s": time.monotonic() - t_start})
         print(info["nvidia_smi"], flush=True)
         return 0
-    ladder = phase_ladder(torch, dev, clock)
-    kernel = phase_kernel(torch, dev)
-    plane = phase_plane(torch, dev)
-    replica = phase_replica(torch, dev)
-    ledger_replica = phase_ledger_replica(torch, dev)
-    process_cluster = phase_process_cluster(torch, dev, ledger_replica)
-    tls_cluster = phase_tls_cluster(torch, dev)
-    persistent_cluster = phase_persistent_cluster(torch, dev,
-                                                  process_cluster)
-    bls_plane = phase_bls_plane(torch, dev)
-    bls_ledger = phase_bls_ledger_replica(torch, dev)
-    ecdsa_plane = phase_ecdsa_plane(torch, dev)
-    ecdsa_ledger = phase_ecdsa_ledger_replica(torch, dev)
-    offload = phase_offload(torch, dev, bls_plane, ecdsa_plane)
-    mesh = phase_mesh(torch, dev, clock)
-    ledger = phase_ledger(torch, dev)
-    digest = phase_digest(torch, dev, ledger.pop("raws"))
-    phase_rate(torch, dev, clock, info["nvidia_smi"])
-    phase_kernels(torch, dev, plane, replica, ledger_replica,
-                  process_cluster, tls_cluster, persistent_cluster, kernel,
-                  ladder, ledger, digest, bls_plane, bls_ledger,
-                  ecdsa_plane, ecdsa_ledger, offload, mesh, clock)
+    ladder = timed("ladder", phase_ladder, torch, dev, clock)
+    kernel = timed("kernel", phase_kernel, torch, dev)
+    plane = timed("plane", phase_plane, torch, dev)
+    replica = timed("replica", phase_replica, torch, dev)
+    ledger_replica = timed("ledger_replica", phase_ledger_replica,
+                           torch, dev)
+    process_cluster = timed("process_cluster", phase_process_cluster,
+                            torch, dev, ledger_replica)
+    tls_cluster = timed("tls_cluster", phase_tls_cluster, torch, dev)
+    persistent_cluster = timed("persistent_cluster",
+                               phase_persistent_cluster, torch, dev,
+                               process_cluster)
+    v4_cluster = timed("v4_cluster", phase_v4_cluster, torch, dev,
+                       persistent_cluster)
+    bls_plane = timed("bls_plane", phase_bls_plane, torch, dev)
+    bls_ledger = timed("bls_ledger_replica", phase_bls_ledger_replica,
+                       torch, dev)
+    ecdsa_plane = timed("ecdsa_plane", phase_ecdsa_plane, torch, dev)
+    ecdsa_ledger = timed("ecdsa_ledger_replica",
+                         phase_ecdsa_ledger_replica, torch, dev)
+    offload = timed("offload", phase_offload, torch, dev, bls_plane,
+                    ecdsa_plane)
+    mesh = timed("mesh", phase_mesh, torch, dev, clock)
+    ledger = timed("ledger", phase_ledger, torch, dev)
+    digest = timed("digest", phase_digest, torch, dev, ledger.pop("raws"))
+    timed("rate", phase_rate, torch, dev, clock, info["nvidia_smi"])
+    timed("kernels", phase_kernels, torch, dev, plane, replica,
+          ledger_replica, process_cluster, tls_cluster, persistent_cluster,
+          v4_cluster, kernel, ladder, ledger, digest, bls_plane, bls_ledger,
+          ecdsa_plane, ecdsa_ledger, offload, mesh, clock)
+    emit({"phase": "timing", "phase_s": phase_s})
     emit({"phase": "done", "wall_s": time.monotonic() - t_start})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,8 +5,10 @@ version, the bring-up kernels against theirs, the ECDSA kernels against
 their plain versions and the host engine (and rlc_verify_batch's
 bisection), a short config-1 replica cluster on the card, and an SKVBC ledger cluster (one write
 through the durability pipeline, one catch-up by state transfer whose
-windows go through the SHA-256 kernel), and BASELINE config 5 over TLS
-under a view-change storm. Marked `cuda`; each test
+windows go through the SHA-256 kernel), BASELINE config 5 over TLS
+under a view-change storm, config 1 on the v4 engine with a
+snapshot-provisioned replica, and the read-only replica, whose fetched
+windows go through the SHA-256 kernel. Marked `cuda`; each test
 skips where no card is present (run on the card:
 python -m pytest --noconftest tests/test_torch_cuda.py).
 """
@@ -791,7 +793,25 @@ def test_persistent_cluster_on_the_card(card):
     transfer through the SHA-256 kernel, no block it kept fetched), the
     whole cluster SIGKILLed and restarted (every acknowledged write read
     back, more writes commit), equal blocks in the four files, the verify
-    kernel launched and nothing degraded."""
+    kernel launched and nothing degraded; beside them an ro_replica
+    process on the card digests its fetched windows with the SHA-256
+    kernel, archives over SigV4 an archive equal to replica 0's file,
+    and answers a signed read (not a forged one)."""
+    out = _chip_smoke().phase_persistent_cluster(
+        torch, card, clients=8, target=120, reads=40, more=40,
+        checkpoint_window=10, work_window=20, min_anchor=20, budget_s=300)
+    assert out["restart_one"]["first_read_last_executed"] == \
+        out["restart_one"]["last_executed_before_kill"] > 0
+    assert out["verify_launches"] > 0 and out["sha256_launches"] > 0
+    ro = out["ro_replica"]
+    assert ro["device_digest_batches"] > 0
+    assert ro["sha256_launches"] >= ro["device_digest_batches"]
+    assert ro["audit"]["failures"] == 0 and ro["audit"]["verified"] > 0
+    assert ro["audit"]["read_equal_to_acknowledged"]
+
+
+def _chip_smoke():
+    """chip_smoke.py, imported from the checkout's root."""
     import importlib.util
     import os
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -799,9 +819,82 @@ def test_persistent_cluster_on_the_card(card):
         "chip_smoke", os.path.join(root, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    out = smoke.phase_persistent_cluster(
-        torch, card, clients=8, target=120, reads=40, more=40,
-        checkpoint_window=10, work_window=20, budget_s=300)
-    assert out["restart_one"]["first_read_last_executed"] == \
-        out["restart_one"]["last_executed_before_kill"] > 0
-    assert out["verify_launches"] > 0 and out["sha256_launches"] > 0
+    return smoke
+
+
+def test_v4_cluster_on_the_card(card):
+    """chip_smoke.py's v4_cluster phase, with all its checks, at a smaller
+    size: four --kvbc-version v4 replica processes on the card on their
+    kvlog files, every one launching the verify kernel; replica 3
+    SIGKILLed, provisioned by the snapshot CLI and restarted, catching up
+    on the gap alone through the SHA-256 kernel; equal v4 chains in the
+    four files."""
+    out = _chip_smoke().phase_v4_cluster(
+        torch, card, clients=8, target=120, reads=40, checkpoint_window=10,
+        work_window=20, budget_s=300)
+    assert all(n > 0 for n in out["verify_launches_by_process"].values())
+    assert out["snapshot"]["digest_ok"] is True
+    assert 0 < out["restart"]["blocks_fetched"] <= out["restart"][
+        "gap_blocks"]
+    assert out["sha256_launches"] > 0
+
+
+def test_ro_replica_window_digests_launch_sha256(card):
+    """An in-process read-only replica on the card (device=card) joining
+    a config-1 SKVBC cluster on the card 40 blocks in: its fetched
+    windows of 16 blocks go through the SHA-256 kernel (launches counted, no device digest
+    failure), and every archived digest equals hashlib's of the archived
+    block, which equals replica 0's."""
+    from tpubft_torch.apps import skvbc
+    from tpubft_torch.kvbc.readonly import (ReadOnlyReplica, archive_key,
+                                            digest_key)
+    from tpubft_torch.statetransfer.manager import StConfig
+    from tpubft_torch.storage.objectstore import InMemoryObjectStore
+    from tpubft_torch.utils.config import ReplicaConfig
+    windows = dict(checkpoint_window_size=10, work_window_size=20,
+                   fast_path_timeout_ms=150)
+    cluster = _skvbc_cluster_on_card(num_ro_replicas=1, **windows)
+    store = InMemoryObjectStore()
+    ro = None
+    try:
+        cluster.start()
+        ro_cfg = ReplicaConfig(replica_id=cluster.n, f_val=1,
+                               num_of_client_proxies=1, num_ro_replicas=1,
+                               **windows)
+        ro = ReadOnlyReplica(ro_cfg, cluster.keys.for_node(cluster.n),
+                             cluster.bus.create(cluster.n),
+                             object_store=store,
+                             st_cfg=StConfig(retry_timeout_s=1.0),
+                             device=card)
+        assert ro.state_transfer._use_device
+        kv = skvbc.SkvbcClient(cluster.client(0))
+        # 40 blocks before the RO joins: its first transfer spans full
+        # windows of 16
+        for n in range(40):
+            assert kv.write([(b"k%d" % n, b"v%d" % n)],
+                            timeout_ms=60000).success
+        sha256_cuda.library()       # built before the transfer needs it
+        sha256_cuda.reset_launches()
+        ro.start()
+        n = 40
+        deadline = time.monotonic() + 120
+        while ro.archived_to < 48:
+            assert time.monotonic() < deadline, ro.archived_to
+            assert kv.write([(b"k%d" % n, b"v%d" % n)],
+                            timeout_ms=60000).success
+            n += 1
+        counters = ro.state_transfer.metrics.snapshot()["counters"]
+        assert counters["device_digest_batches"] > 0
+        assert counters["device_digest_failures"] == 0
+        assert sha256_cuda.LAUNCHES["sha256"] >= \
+            counters["device_digest_batches"]
+        h0 = cluster.handlers[0].blockchain
+        for b in range(1, ro.archived_to + 1):
+            raw = store.get(archive_key(b))
+            assert raw == h0.get_raw_block(b)
+            assert store.get(digest_key(b)) == \
+                hashlib.sha256(raw).digest() == h0.block_digest(b)
+    finally:
+        if ro is not None:
+            ro.stop()
+        cluster.stop()

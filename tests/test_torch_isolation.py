@@ -3,8 +3,9 @@ among it) and chip_smoke.py import nothing of JAX, of the reference
 package or of `cryptography` (the machine with the card has none; the
 TLS material is written by comm/_der.py), the native libraries the port
 loads (netio, the BLS engine, kvlog) are its own builds in ops/_build/,
-and chip_smoke.py refuses to run without a card or without the port
-beside it."""
+the ledger engines, their tools and the read-only replica run alone
+(which without a card exits with NoDevice), and chip_smoke.py refuses to
+run without a card or without the port beside it."""
 import ast
 import os
 import shutil
@@ -177,6 +178,65 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "tpubft", "cryptography"))
 print("LEAKED:" + ",".join(bad))
 """
+
+
+_LEDGER_ALONE = r"""
+import json, os, subprocess, sys, tempfile
+from tpubft_torch import device
+device.set_default_device("cpu")
+from tpubft_torch.apps import ro_replica
+from tpubft_torch.kvbc import BlockUpdates, create_blockchain
+from tpubft_torch.kvbc import readonly, resources, snapshots
+from tpubft_torch.kvbc.replica import open_db
+from tpubft_torch.tools import migrate_v4, snapshot
+d = tempfile.mkdtemp()
+src = open_db(os.path.join(d, "src.kvlog"))
+bc = create_blockchain(src, version="v1")
+for i in range(70):
+    bc.add_block(BlockUpdates().put("kv", b"k%d" % (i % 5), b"v%d" % i))
+src.close()
+sys.argv = ["migrate_v4", "--src", os.path.join(d, "src.kvlog"),
+            "--dst", os.path.join(d, "v4.kvlog"), "--from", "v1", "--to", "v4"]
+migrate_v4.main()
+for argv in (["create", os.path.join(d, "v4.kvlog"), os.path.join(d, "s")],
+             ["restore", os.path.join(d, "s"), os.path.join(d, "r.kvlog")]):
+    sys.argv = ["snapshot"] + argv + ["--kvbc-version", "v4"]
+    assert snapshot.main() == 0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "tpubft", "cryptography"))
+print("LEAKED:" + ",".join(bad))
+"""
+
+
+def test_ledger_engines_and_tools_import_nothing_of_the_reference():
+    """The v4 and v1 engines, migrate_v4, the snapshot CLI, the resources
+    manager and the read-only replica and its process module run in a
+    process that imports nothing of JAX, of the reference or of
+    `cryptography`: a v1 ledger migrated to v4 by the CLI, snapshotted
+    and restored with digest_ok."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++: the engine is built from source at first use")
+    out = subprocess.run([sys.executable, "-c", _LEDGER_ALONE],
+                         capture_output=True, text=True, cwd=ROOT,
+                         env=_env(), timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert '"digest_ok": true' in out.stdout, out.stdout
+    assert "LEAKED:\n" in out.stdout + "\n", out.stdout
+
+
+def test_ro_replica_without_a_card_exits_with_no_device():
+    """python -m tpubft_torch.apps.ro_replica without `--device cpu` on a
+    host without a card exits non-zero with NoDevice before it serves."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    out = subprocess.run(
+        [sys.executable, "-m", "tpubft_torch.apps.ro_replica",
+         "--replica", "4", "--base-port", "1", "--metrics-port", "0"],
+        capture_output=True, text=True, cwd=ROOT, env=_env(), timeout=120)
+    assert out.returncode != 0
+    assert "NoDevice" in out.stderr
+    assert "up (" not in out.stdout
 
 
 def test_storage_loads_only_the_ports_kvlog_and_no_reference():

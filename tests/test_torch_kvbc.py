@@ -234,9 +234,11 @@ def test_create_blockchain_categorized(version):
 
 
 @pytest.mark.parametrize("version", ["v4", "v1", "direct"])
-def test_create_blockchain_unported_engines_raise(version):
-    with pytest.raises(NotImplementedError):
-        create_blockchain(MemoryDB(), version=version)
+def test_create_blockchain_selects_the_other_engines(version):
+    from tpubft_torch.kvbc.v1 import DirectKVBlockchain
+    from tpubft_torch.kvbc.v4 import V4KeyValueBlockchain
+    want = V4KeyValueBlockchain if version == "v4" else DirectKVBlockchain
+    assert type(create_blockchain(MemoryDB(), version=version)) is want
 
 
 def test_create_blockchain_unknown_engine():

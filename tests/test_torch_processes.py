@@ -557,7 +557,8 @@ def test_replica_without_a_card_exits_with_no_device(module):
     assert network.MetricsClient(base + 1000).snapshot(0.3) is None
 
 
-@pytest.mark.parametrize("phase", ["process_cluster", "persistent_cluster"])
+@pytest.mark.parametrize("phase", ["process_cluster", "persistent_cluster",
+                                   "tls_cluster"])
 def test_cluster_ab_without_a_card_exits_with_no_result(phase):
     """tools/cluster_ab.py runs a checkout's cluster phase on the card
     only: without one it exits 2 and prints no result line."""
@@ -573,8 +574,18 @@ def test_cluster_ab_without_a_card_exits_with_no_result(phase):
     assert "no CUDA device" in out.stderr
 
 
+def test_skvbc_replica_takes_kvbc_version_v4_and_not_v1():
+    """--kvbc-version v4 parses and passes refuse_unported; v1, a
+    migration source only, is not a choice (as in the reference)."""
+    p = skvbc_replica.make_parser()
+    args = p.parse_args(["--replica", "0", "--kvbc-version", "v4"])
+    assert args.kvbc_version == "v4"
+    skvbc_replica.refuse_unported(args)
+    with pytest.raises(SystemExit):
+        p.parse_args(["--replica", "0", "--kvbc-version", "v1"])
+
+
 @pytest.mark.parametrize("argv, step", [
-    (["--kvbc-version", "v4"], "A.9.3"),
     (["--trs-port", "0"], "A.9.4"),
     (["--pre-execution"], "A.9.4"),
     (["--prom-port", "0"], "A.9.5"),
@@ -601,7 +612,6 @@ def test_network_refuses_unported_options(kw, step):
     (lambda n: n.set_loss(0, 0.1), "A.9.6"),
     (lambda n: n.set_delay(0, 5.0), "A.9.6"),
     (lambda n: n.heal(), "A.9.6"),
-    (lambda n: n.start_ro_replica(), "A.9.4"),
     (lambda n: n.operator_client(), "A.9.4"),
 ])
 def test_network_refuses_unported_planes(call, step):

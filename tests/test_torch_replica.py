@@ -8,6 +8,7 @@ they are compared byte for byte. The client's request ids and
 correlation ids are pinned on both sides (the reference draws them from
 the wall clock and the process tracer).
 """
+import json
 import time
 
 import pytest
@@ -278,3 +279,126 @@ def test_three_threshold_systems_build_for_config_one():
                           MultisigEd25519Verifier)
     assert port.client_pubkeys == ref.client_pubkeys
     assert port.replica_pubkeys == ref.replica_pubkeys
+
+
+
+@pytest.mark.parametrize("unproductive,reproposed,factor", [
+    (0, 150, 1), (1, 0, 1), (1, 75, 1.5), (1, 150, 2), (1, 600, 2),
+    (2, 150, 4), (3, 0, 4), (4, 0, 8), (9, 75, 12)])
+def test_no_progress_timeout_grows_until_a_new_view_executes(
+        unproductive, reproposed, factor):
+    """The watchdog gives a view `factor` view-change timeouts before it
+    complains: 1 once the view has executed; before that, 1 plus the
+    slots its primary re-proposed over the checkpoint window (at most
+    2), doubled for each earlier view entered since one executed
+    (capped at 8), and one timeout again once the view executes (a port
+    divergence: the reference's timeout is fixed)."""
+    cl = PortCluster(f=1, num_clients=1, seed=SEED,
+                     cfg_overrides=dict(PLANES_OFF, crypto_backend="cpu"))
+    rep = cl.replicas[1]
+    try:
+        complaints = []
+        rep._complain = lambda view, *a, **kw: complaints.append(view)
+        rep._running = True
+        rep.pending_requests = [object()]
+        timeout = rep.cfg.view_change_timer_ms / 1e3
+        rep._progress_view = 4
+        rep.view = 4 + unproductive
+        rep._reproposed = reproposed
+        rep._last_progress = time.monotonic() - (factor - 0.25) * timeout
+        rep._check_view_change_timer()
+        assert complaints == []
+        rep._last_progress = time.monotonic() - (factor + 0.25) * timeout
+        rep._check_view_change_timer()
+        assert complaints == [rep.view]
+        # the view executes: one timeout again
+        rep._note_progress()
+        assert rep._progress_view == rep.view
+        rep._last_progress = time.monotonic() - 1.25 * timeout
+        rep._check_view_change_timer()
+        assert complaints == [rep.view, rep.view]
+    finally:
+        rep._running = False
+        cl.stop()
+
+
+def test_a_view_records_its_reproposals_and_first_execution():
+    """An equivocating primary is deposed at the first write: each honest
+    replica records the view it entered, the slots re-proposed there and
+    the time from its entry to its first execution, and after that
+    execution the view's no-progress timeout is the configured one."""
+    overrides = dict(PLANES_OFF, crypto_backend="cpu",
+                     view_change_timer_ms=900)
+    with PortCluster(f=1, seed=SEED, byzantine={0: "equivocate"},
+                     cfg_overrides=overrides) as cl:
+        reply = cl.client().send_write(port_counter.encode_add(9),
+                                       timeout_ms=60000)
+        assert port_counter.decode_reply(reply) == 9
+        for r in (1, 2, 3):
+            rep = cl.replicas[r]
+            _wait(lambda: rep._view_entries
+                  and rep._view_entries[-1]["first_exec_ms"] is not None,
+                  30, f"replica {r}'s first execution in its new view")
+            entry = rep._view_entries[-1]
+            assert entry["view"] == rep.view >= 1
+            assert 0 <= entry["reproposed"] <= rep.cfg.checkpoint_window_size
+            assert entry["first_exec_ms"] > 0
+            assert rep._no_progress_factor() == 1.0
+            shown = json.loads(rep._diag.get_status(
+                f"replica{r}.views"))[-1]
+            assert {k: shown[k] for k in ("view", "reproposed",
+                                          "first_exec_ms")} \
+                == {k: entry[k] for k in ("view", "reproposed",
+                                          "first_exec_ms")}
+
+
+def test_new_primary_reproposes_unexecuted_slots_first_then_paces_the_rest():
+    """A new primary re-proposes the slots past its last execution at
+    once, then the ones it has executed, highest first, with at most
+    REPROPOSE_IN_FLIGHT of them uncommitted; the rest go as those
+    commit, and none once the view is left (a port divergence: the
+    reference re-proposes every slot ascending in one loop)."""
+    cl = PortCluster(f=1, num_clients=1, seed=SEED,
+                     cfg_overrides=dict(PLANES_OFF, crypto_backend="cpu"))
+    rep = cl.replicas[1]
+    try:
+        sent = []
+        rep._repropose_seq = sent.append
+        rep.view = 1
+        assert rep.is_primary
+        rep.last_executed = 20
+        rep.restrictions = {q: None for q in range(1, 24)}
+        k = rep.REPROPOSE_IN_FLIGHT
+        rep._repropose()
+        assert sent == [21, 22, 23] + list(range(20, 20 - k, -1))
+        assert rep.primary_next_seq == 24
+        rep._pump_reproposals()
+        assert len(sent) == 3 + k
+        for q in (20, 19):
+            rep.window.get(q).committed = True
+        rep._pump_reproposals()
+        assert sent[3 + k:] == [20 - k, 19 - k]
+        rep.in_view_change = True
+        rep._pump_reproposals()
+        assert len(sent) == 5 + k and rep._reproposals[1] == []
+    finally:
+        cl.stop()
+
+
+def test_view_entry_probe_sees_view_one_execute():
+    """tools/view_entry_probe.py: with 140 slots past the checkpoint the
+    view after a stopped primary executes in that view, without being
+    deposed while its primary re-proposes (ROADMAP C.8)."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, os.path.join(root, "tpubft_torch", "tools",
+                                      "view_entry_probe.py"),
+         "--slots", "140"],
+        capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(res["view_at_first_exec"].values()) == {1}
+    assert all(v >= 140 for v in res["past_checkpoint"].values())

@@ -4,10 +4,11 @@ reference's: the tests of tests/test_s3.py that need no read-only
 replica, each run with the port's client on the port's server, the
 port's client on the reference's server and the reference's client on
 the port's server (real HTTP, real SigV4); SigV4 headers equal for a
-fixed clock; and sealed objects equal byte for byte on disk
-(FsObjectStore). The read-only replica's archival run
-(test_ro_replica_archives_to_s3) waits for the read tier (ROADMAP
-A.9.4)."""
+fixed clock; sealed objects equal byte for byte on disk
+(FsObjectStore); and the read-only replica's archival writes
+(test_ro_replica_archives_to_s3) with the port's archive keys, which are
+the reference's. The read-only replica process archiving over S3 is in
+tests/test_torch_readonly.py."""
 import datetime
 import os
 
@@ -117,6 +118,23 @@ def test_server_error_surfaces_as_s3error(pair):
         st.put("k", b"v")
     st.put("k", b"v")                     # next request succeeds
     assert st.get("k") == b"v"
+
+
+def test_ro_replica_archives_to_s3(pair):
+    """The RO replica's archival writes ride the S3 backend unchanged
+    (the same IObjectStore seam as the filesystem store), under the
+    reference's archive keys."""
+    from tpubft.kvbc.readonly import archive_key as ref_archive_key
+    from tpubft.kvbc.readonly import digest_key as ref_digest_key
+    from tpubft_torch.kvbc.readonly import archive_key, digest_key
+    st = _store(pair, prefix="ro-4/")
+    for blk in (1, 2, 3, 10 ** 12):
+        assert archive_key(blk) == ref_archive_key(blk)
+        assert digest_key(blk) == ref_digest_key(blk)
+    for blk in (1, 2, 3):
+        st.put(archive_key(blk), b"raw-block-%d" % blk)
+    assert [archive_key(b) for b in (1, 2, 3)] == list(st.list())
+    assert st.get(archive_key(2)) == b"raw-block-2"
 
 
 def test_sigv4_headers_equal_the_reference_for_a_fixed_clock():

@@ -3,10 +3,10 @@ tpubft/apps/skvbc_replica.py).
 
 Rebuild of concord-bft tests/simpleKVBC/TesterReplica/main.cpp:192:
 a standalone replica process running the SimpleKVBC state machine over
-the categorized blockchain, a UDP metrics server for the system-test
-harness to poll, a diagnostics admin server, and (optionally) a
-byzantine communication-wrapping strategy for fault-injection tests
-(TesterReplica/strategy/ + WrapCommunication.cpp).
+the categorized or the v4 blockchain (`--kvbc-version`), a UDP metrics
+server for the system-test harness to poll, a diagnostics admin server,
+and (optionally) a byzantine communication-wrapping strategy for
+fault-injection tests (TesterReplica/strategy/ + WrapCommunication.cpp).
 
 Run:  python -m tpubft_torch.apps.skvbc_replica --replica 0 --f 1 \\
           --base-port 3710 --metrics-port 4710 [--db-dir DIR] \\
@@ -19,11 +19,11 @@ Port divergences (reference skvbc_replica.py:27-193):
 - `--crypto-backend` takes cuda|cpu|auto and defaults to cuda (the
   reference's default is cpu).
 - The options of planes the port does not carry yet are refused with
-  the ROADMAP step that ports them: `--kvbc-version v4` (A.9.3),
-  `--trs-port`, `--pre-execution` (A.9.4), `--prom-port` (A.9.5) and
-  `--fault-port` (A.9.6). `--db-dir` keeps the ledger and the consensus
-  metadata in `DIR/replica-<id>.kvlog`, as the reference does; without
-  it they live in memory.
+  the ROADMAP step that ports them: `--trs-port`, `--pre-execution`
+  (A.9.4), `--prom-port` (A.9.5) and `--fault-port` (A.9.6). `--db-dir`
+  keeps the ledger and the consensus metadata in
+  `DIR/replica-<id>.kvlog`, as the reference does; without it they
+  live in memory.
 - The UDP transport's netio counters (comm/udp.METRICS) are published
   beside the replica's own components.
 - `status get device` also reports ops/ecdsa.COUNTS (the RLC path's
@@ -52,8 +52,6 @@ def refuse_unported(args) -> None:
     """Port divergence: refuse, before anything is built, every option
     whose plane is not ported yet, naming its ROADMAP step."""
     for flag, on, step in (
-            ("--kvbc-version v4", args.kvbc_version != "categorized",
-             "A.9.3"),
             ("--trs-port", args.trs_port is not None, "A.9.4"),
             ("--pre-execution", args.pre_execution, "A.9.4"),
             ("--prom-port", args.prom_port is not None, "A.9.5"),
@@ -195,7 +193,10 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-window", type=int, default=150)
     p.add_argument("--work-window", type=int, default=300)
     # v1 (direct-KV) is deliberately NOT offered here (reference
-    # skvbc_replica.py:143-146); v4 is not ported (A.9.3)
+    # skvbc_replica.py:132-135): it is a migration source
+    # (tools/migrate_v4 --from v1), and as a consensus engine its raising
+    # history reads would let one read request halt execution on every
+    # correct replica
     p.add_argument("--kvbc-version", default="categorized",
                    choices=("categorized", "v4"))
     add_scheme_args(p)

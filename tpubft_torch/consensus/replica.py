@@ -22,6 +22,8 @@ module; this replica already persists + window-manages for it.
 from __future__ import annotations
 
 import abc
+import collections
+import json
 import struct
 import threading
 import time
@@ -353,6 +355,13 @@ class Replica(IReceiver):
         self._complained_views: set = set()
         self._vc_started_at = 0.0
         self._last_progress = time.monotonic()
+        # the view in which last_executed last advanced and the slots
+        # the view we are in re-proposed (_no_progress_factor); the last
+        # views entered, each with its time to its first execution
+        # (`status get views`)
+        self._progress_view = self.view
+        self._reproposed = 0
+        self._view_entries: collections.deque = collections.deque(maxlen=32)
         self._forwarded: Dict[tuple, float] = {}   # (client, req_seq) -> time
         # client -> (head req_seq of last relayed batch, relay time):
         # backup batch-relay suppression (see _dispatch_external)
@@ -386,6 +395,9 @@ class Replica(IReceiver):
                 self._agg_fallback_tick)
         self.dispatcher.add_timer(cfg.batch_flush_period_ms / 1000.0,
                                   self._try_send_pre_prepare)
+        # a new primary's executed slots: (view, to re-propose, sent)
+        self._reproposals: Tuple[int, List[int], List[int]] = (0, [], [])
+        self.dispatcher.add_timer(0.005, self._pump_reproposals)
         self.dispatcher.add_timer(cfg.fast_path_timeout_ms / 1000.0 / 4,
                                   self._check_fast_path_timeouts)
         self.dispatcher.add_timer(cfg.view_change_timer_ms / 1000.0 / 4,
@@ -688,6 +700,13 @@ class Replica(IReceiver):
         self._diag.register_status(f"replica{self.id}.health",
                                    self.health.render)
         self._diag.register_status("health", self.health.render)
+        # the last views entered: slots re-proposed, ms to the first
+        # execution (null until it comes), seconds since entry; the bare
+        # key as "health"'s
+        for key in (f"replica{self.id}.views", "views"):
+            self._diag.register_status(key, lambda: json.dumps([
+                dict(e, t=round(time.monotonic() - e["t"], 3))
+                for e in list(self._view_entries)]))
         # flight recorder surfaces (`status get flight|slots|kernels`)
         flight.install_diagnostics(self._diag)
         from tpubft_torch.testing.slowdown import get_slowdown_manager
@@ -981,7 +1000,7 @@ class Replica(IReceiver):
         # past the era boundary, or every peer message gets dropped by
         # the era gate while we keep stamping a dead epoch
         self.m_epoch.set(self.epoch_mgr.boot_adopt(seq))
-        self._last_progress = time.monotonic()
+        self._note_progress()
         # adoption done: re-arm execution for any slots committed beyond
         # the transferred checkpoint (the pre-adoption drain deliberately
         # did not re-pump)
@@ -2590,7 +2609,7 @@ class Replica(IReceiver):
         self.last_executed = nxt
         self._exec_enqueued = max(self._exec_enqueued, nxt)
         self.m_last_executed.set(nxt)
-        self._last_progress = time.monotonic()
+        self._note_progress()
         with self._tran() as st:
             st.last_executed_seq = nxt
         # inline path: apply and reply complete together on the
@@ -2883,7 +2902,7 @@ class Replica(IReceiver):
             if run.last > self.last_executed:
                 self.last_executed = run.last
                 self.m_last_executed.set(run.last)
-            self._last_progress = time.monotonic()
+            self._note_progress()
             # slot integrated + replies on the wire: the `reply` stage
             # ends here (the lane recorded EV_EXEC_APPLY at its apply/
             # seal; with the durability pipeline the group-fsync wait
@@ -3478,10 +3497,51 @@ class Replica(IReceiver):
                     or now - t > 4 * timeout]:
             del self._forwarded[key]
         if in_flight or self.pending_requests or self._forwarded:
-            if now - self._last_progress > timeout:
+            if now - self._last_progress > \
+                    timeout * self._no_progress_factor():
                 self._complain(self.view)
         else:
             self._last_progress = now           # idle: reset the clock
+
+    # the doubling stops at 2**3
+    NO_PROGRESS_BACKOFF_MAX_EXP = 3
+
+    def _no_progress_factor(self) -> float:
+        """Factor on the no-progress timeout of the view we are in. 1
+        once it has executed. Before that, 1 plus the slots its primary
+        re-proposed over the checkpoint window (at most 2), doubled for
+        each view entered before it since one executed (PBFT's backoff,
+        Castro and Liskov, OSDI 1999, section 4.5.2; capped at
+        2**NO_PROGRESS_BACKOFF_MAX_EXP). Port divergence (reference
+        replica.py `_check_view_change_timer`, a fixed timeout): a new
+        primary re-proposes every slot since the last stable checkpoint
+        before the view can execute anything new, so with a fixed
+        timeout a view entered late in a checkpoint window is deposed
+        while it re-proposes, and so is the next one, which re-proposes
+        the same slots: a cascade of views that order nothing (ROADMAP
+        C.8, seen on the card under config 5's storm). Progress is
+        still `last_executed` advancing; a view with nothing to
+        re-propose after one that executed is given the timeout as
+        before."""
+        unproductive = self.view - self._progress_view
+        if unproductive <= 0:
+            return 1.0
+        work = 1.0 + min(self._reproposed
+                         / self.cfg.checkpoint_window_size, 1.0)
+        return work * 2 ** min(unproductive - 1,
+                               self.NO_PROGRESS_BACKOFF_MAX_EXP)
+
+    def _note_progress(self) -> None:
+        """last_executed advanced (or a transfer completed): restart the
+        no-progress clock; the first time in a view, record the view's
+        time from entry to its first execution."""
+        now = time.monotonic()
+        self._last_progress = now
+        self._progress_view = self.view
+        if self._view_entries:
+            e = self._view_entries[-1]
+            if e["view"] == self.view and e["first_exec_ms"] is None:
+                e["first_exec_ms"] = round((now - e["t"]) * 1e3, 1)
 
     def _complain(self, view: int, reason: int = 0,
                   force: bool = False) -> None:
@@ -3803,6 +3863,12 @@ class Replica(IReceiver):
         now = time.monotonic()
         self._last_progress = now
         self._forwarded = {k: now for k in self._forwarded}
+        self._reproposed = max(max(restrictions, default=self.last_stable)
+                               - self.last_stable, 0)
+        self._view_entries.append({
+            "view": new_view, "reproposed": self._reproposed,
+            "restricted": len(restrictions), "t": now,
+            "first_exec_ms": None})
         with self._tran() as st:
             st.last_view = new_view
             st.in_view_change = False
@@ -3817,37 +3883,79 @@ class Replica(IReceiver):
         if self.is_primary:
             self._repropose()
 
+    # executed slots a new primary keeps re-proposed but uncommitted
+    REPROPOSE_IN_FLIGHT = 8
+
     def _repropose(self) -> None:
         """New primary: re-issue PrePrepares for every restricted seqnum
         (same batch, slow path — safest after a view change) and fill gaps
-        below the highest certified seqnum with empty batches."""
+        below the highest certified seqnum with empty batches.
+
+        Port divergence (reference replica.py `_repropose`, every slot
+        ascending from the stable checkpoint in one loop): the slots past
+        this replica's last execution go out here, the ones it has
+        executed (the highest first) from a dispatcher timer with at
+        most REPROPOSE_IN_FLIGHT of them uncommitted (_pump_reproposals).
+        In one loop, the first slots' prepare and commit rounds, and the
+        new requests', waited at every replica behind up to a checkpoint
+        window of PrePrepares that most replicas have executed, and the
+        view was deposed before it executed anything new (ROADMAP C.8).
+        The messages and the slots are the same."""
         base = self.last_stable
         max_cert = max(self.restrictions, default=base)
         self.primary_next_seq = max(max_cert, self.last_executed, base) + 1
-        for seq in range(base + 1, max_cert + 1):
-            existing = self.window.peek(seq)
-            if existing is not None and existing.pre_prepare is not None:
-                # already (re)proposed before a crash — rebroadcast the
-                # SAME message; a fresh timestamp would change the digest
-                # and strand backups' shares on the old one
-                self._broadcast(existing.pre_prepare)
-                continue
-            restr = self.restrictions.get(seq)
-            if restr is not None:
-                old = m.unpack(restr.pre_prepare)
-                requests, pp_time = old.requests, old.time
-            else:
-                requests, pp_time = [], 0
-            pp = m.PrePrepareMsg(
-                sender_id=self.id, view=self.view, seq_num=seq,
-                epoch=self.epoch,
-                first_path=int(m.CommitPath.SLOW), time=pp_time,
-                requests_digest=m.PrePrepareMsg.compute_requests_digest(
-                    requests),
-                requests=requests, signature=b"")
-            pp.signature = self.sig.sign(pp.signed_payload())
-            self._broadcast(pp)
-            self._accept_pre_prepare(pp)
+        split = min(max(self.last_executed, base), max_cert)
+        for seq in range(split + 1, max_cert + 1):
+            self._repropose_seq(seq)
+        # the highest first: a replica a few slots behind needs those
+        self._reproposals = (self.view, list(range(split, base, -1)), [])
+        self._pump_reproposals()
+
+    def _pump_reproposals(self) -> None:
+        """Dispatcher timer: re-propose this primary's next executed
+        slots (_repropose) while fewer than REPROPOSE_IN_FLIGHT of those
+        sent are uncommitted; the rest are dropped once the view is left,
+        and each as it falls behind the stable checkpoint."""
+        view, seqs, sent = self._reproposals
+        if not seqs:
+            return
+        if view != self.view or self.in_view_change \
+                or not self.is_primary:
+            self._reproposals = (view, [], [])
+            return
+        sent = [q for q in sent if q > self.last_stable
+                and not self.window.get(q).committed]
+        room = self.REPROPOSE_IN_FLIGHT - len(sent)
+        chunk = [q for q in seqs[:max(room, 0)]
+                 if q > self.last_stable and self.window.in_window(q)]
+        self._reproposals = (view, seqs[max(room, 0):], sent + chunk)
+        for seq in chunk:
+            self._repropose_seq(seq)
+
+    def _repropose_seq(self, seq: int) -> None:
+        existing = self.window.peek(seq)
+        if existing is not None and existing.pre_prepare is not None:
+            # already (re)proposed before a crash — rebroadcast the
+            # SAME message; a fresh timestamp would change the digest
+            # and strand backups' shares on the old one
+            self._broadcast(existing.pre_prepare)
+            return
+        restr = self.restrictions.get(seq)
+        if restr is not None:
+            old = m.unpack(restr.pre_prepare)
+            requests, pp_time = old.requests, old.time
+        else:
+            requests, pp_time = [], 0
+        pp = m.PrePrepareMsg(
+            sender_id=self.id, view=self.view, seq_num=seq,
+            epoch=self.epoch,
+            first_path=int(m.CommitPath.SLOW), time=pp_time,
+            requests_digest=m.PrePrepareMsg.compute_requests_digest(
+                requests),
+            requests=requests, signature=b"")
+        pp.signature = self.sig.sign(pp.signed_payload())
+        self._broadcast(pp)
+        self._accept_pre_prepare(pp)
 
     # ------------------------------------------------------------------
     # helpers

@@ -190,14 +190,18 @@ def cluster_keys_from_public(
     return ck
 
 
-def block_updates(rows: Iterable[Tuple[str, bytes, bytes, str]],
-                  cls=BlockUpdates):
+def block_updates(rows: Iterable[tuple], cls=BlockUpdates):
     """One block's updates from (category, key, value, category type)
-    rows; `cls` is the BlockUpdates class of either package (their
-    category type names are the same strings)."""
+    rows, each with its tags as an optional fifth element; a value of
+    None deletes the key. `cls` is the BlockUpdates class of either
+    package (their category type names are the same strings)."""
     bu = cls()
-    for category, key, value, cat_type in rows:
-        bu.put(category, key, value, cat_type)
+    for category, key, value, cat_type, *tags in rows:
+        if value is None:
+            bu.delete(category, key, cat_type)
+        else:
+            bu.put(category, key, value, cat_type,
+                   tags=tags[0] if tags else None)
     return bu
 
 

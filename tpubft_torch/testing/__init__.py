@@ -16,7 +16,8 @@ crafts it the same way).
 
 `kvbcbench_rows` is the ledger's block shape: the reference's kvbcbench
 (benchmarks/bench_kvbc.py), 8 versioned keys and one Merkle-proven key
-per block.
+per block. `ledger_rows` are seeded blocks of puts, deletes and tags in
+all three category types, which every ledger engine accepts.
 
 The package also holds the harnesses (port of tpubft/testing/):
 `InProcessCluster` runs a cluster in this process, `BftTestNetwork`
@@ -266,6 +267,39 @@ def kvbcbench_rows(blocks: int, keys_per_block: int = 8, big_every: int = 0
         rows.append(("proven", b"m-%d" % (b % 64), b"mv-%d" % b,
                      "block_merkle"))
         out.append(rows)
+    return out
+
+
+def ledger_rows(blocks: int, seed: int, keys: int = 6
+                ) -> List[List[tuple]]:
+    """Seeded blocks that every ledger engine accepts, mixing the three
+    category types: puts and deletes of `keys` names in the versioned
+    category "kv" and the Merkle category "mk", and in the immutable
+    category "ev" a new key a write (never rewritten or deleted) with
+    zero to two of the tags t0..t2. Rows are convert.block_updates'
+    (category, key, value or None, category type, tags)."""
+    rng = np.random.default_rng(seed)
+    out, fresh = [], 0
+    for b in range(blocks):
+        rows = {}
+        for _ in range(int(rng.integers(1, 6))):
+            kind = int(rng.integers(0, 3))
+            if kind == 2:
+                tags = sorted({f"t{int(t)}" for t in
+                               rng.integers(0, 3, int(rng.integers(0, 3)))})
+                rows[("ev", b"e-%d" % fresh)] = (
+                    b"ev-%d-%d" % (b, fresh), "immutable", tags)
+                fresh += 1
+                continue
+            cat, cat_type = (("kv", "versioned_kv") if kind == 0
+                             else ("mk", "block_merkle"))
+            key = b"%s-%d" % (cat.encode(), int(rng.integers(0, keys)))
+            value = (None if rng.random() < 0.25
+                     else b"%s-%d-%d" % (cat.encode(), b,
+                                         int(rng.integers(0, 1 << 16))))
+            rows[(cat, key)] = (value, cat_type, [])
+        out.append([(cat, key, value, cat_type, tags) for (cat, key),
+                    (value, cat_type, tags) in rows.items()])
     return out
 
 

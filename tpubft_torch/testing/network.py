@@ -22,8 +22,11 @@ Port divergences (reference network.py:70-491):
   the cluster uses binds free; a replica that still meets EADDRINUSE
   exits with that code, and `start_all` then retries once on a new base.
 - Replicas run without `--fault-port` and `--trs-port`; the per-link
-  faults (A.9.6), `start_ro_replica` (A.9.4) and `operator_client`
-  (A.9.4) raise NotImplementedError.
+  faults (A.9.6) and `operator_client` (A.9.4) raise
+  NotImplementedError.
+- `start_ro_replica` spawns `python -m tpubft_torch.apps.ro_replica`
+  with the network's `--device`, `--diag-port` and TLS material; its
+  output goes to `ro-<id>.log` in the log directory.
 - With `db_dir`, every replica keeps its ledger in
   `db_dir/replica-<id>.kvlog` (`--db-dir`) and its output in
   `db_dir/replica-<id>.log` unless `log_dir` names another directory;
@@ -33,8 +36,9 @@ Port divergences (reference network.py:70-491):
   directory that the network owns (the reference asserts `db_dir` for
   TLS), written again when a stopped network starts.
 - Added: `BftTestNetwork.first_answer` (what a (re)started replica
-  recovered, and when it first answered) and `ledger_files` (the
-  stopped replicas' kvlog files compared block by block).
+  recovered, and when it first answered), `ledger_files` (the stopped
+  replicas' kvlog files compared block by block) and `kvbc_version`
+  (every replica's `--kvbc-version`).
 """
 from __future__ import annotations
 
@@ -168,14 +172,15 @@ def build_libraries(device: str) -> Dict[str, float]:
     return _build.build_parallel(libs)
 
 
-def ledger_files(db_dir: str, replicas: Iterable[int]) -> dict:
+def ledger_files(db_dir: str, replicas: Iterable[int],
+                 version: str = "categorized") -> dict:
     """With the replicas stopped: each `db_dir/replica-<r>.kvlog` opened
-    with the port's NativeDB under the port's blockchain -> its size
-    (`bytes`), its `last_block_id`, the blocks compared
-    (1..min(last block id)) and the first of them whose raw bytes are
-    not equal in every file (`first_unequal_block`, None if all are).
-    Port addition (no reference counterpart)."""
-    from tpubft_torch.kvbc.blockchain import KeyValueBlockchain
+    with the port's NativeDB under the port's blockchain of `version`
+    -> its size (`bytes`), its `last_block_id`, the blocks compared
+    (1..min(last block id)) and the first of them whose raw bytes or
+    digest are not equal in every file (`first_unequal_block`, None if
+    all are). Port addition (no reference counterpart)."""
+    from tpubft_torch.kvbc import create_blockchain
     from tpubft_torch.storage.native import NativeDB
     dbs, chains, out = [], [], {"bytes": {}, "last_block_id": {}}
     try:
@@ -183,15 +188,16 @@ def ledger_files(db_dir: str, replicas: Iterable[int]) -> dict:
             path = os.path.join(db_dir, f"replica-{r}.kvlog")
             out["bytes"][r] = os.path.getsize(path)
             dbs.append(NativeDB(path))
-            chains.append(KeyValueBlockchain(dbs[-1],
-                                             use_device_hashing=False))
+            chains.append(create_blockchain(dbs[-1], version=version,
+                                            use_device_hashing=False))
             out["last_block_id"][r] = chains[-1].last_block_id
         common = min(out["last_block_id"].values())
         out["compared_blocks"] = common
         out["first_unequal_block"] = None
         for b in range(1, common + 1):
-            raws = {bc.get_raw_block(b) for bc in chains}
-            if len(raws) != 1 or None in raws:
+            raws = {(bc.get_raw_block(b), bc.block_digest(b))
+                    for bc in chains}
+            if len(raws) != 1 or None in next(iter(raws)):
                 out["first_unequal_block"] = b
                 break
     finally:
@@ -218,7 +224,8 @@ class BftTestNetwork:
                  merkle: bool = False,
                  cfg_overrides: Optional[dict] = None,
                  device: str = "cuda",
-                 log_dir: Optional[str] = None) -> None:
+                 log_dir: Optional[str] = None,
+                 kvbc_version: str = "categorized") -> None:
         if pre_execution:
             _not_ported("BftTestNetwork(pre_execution=True)", "A.9.4")
         self.f, self.c = f, c
@@ -240,6 +247,7 @@ class BftTestNetwork:
         # process as --config-override FIELD=VALUE
         self.cfg_overrides = dict(cfg_overrides or {})
         self.device = device
+        self.kvbc_version = kvbc_version
         self._fixed_base = base_port is not None
         self._set_base(base_port if base_port is not None
                        else self._free_base())
@@ -398,7 +406,8 @@ class BftTestNetwork:
                 "--work-window", str(self.work_window),
                 "--threshold-scheme", self.threshold_scheme,
                 "--client-sig-scheme", self.client_sig_scheme,
-                "--transport", self.transport] + (extra_args or [])
+                "--transport", self.transport,
+                "--kvbc-version", self.kvbc_version] + (extra_args or [])
         if self.transport in ("tls", "tls-mux"):
             args += ["--certs-dir", self._tls_material()]
         if self.device_min_verify_batch is not None:
@@ -422,9 +431,41 @@ class BftTestNetwork:
         if out is not subprocess.DEVNULL:
             out.close()                   # child keeps its own fd
 
-    def start_ro_replica(self, idx: int = 0, extra_args=None,
-                         extra_env=None) -> int:
-        _not_ported("BftTestNetwork.start_ro_replica", "A.9.4")
+    def start_ro_replica(self, idx: int = 0,
+                         extra_args: Optional[List[str]] = None,
+                         extra_env: Optional[Dict[str, str]] = None) -> int:
+        """Spawn a read-only replica process (id n+idx) — the archival
+        follower (reference RO TesterReplica variant). Returns its id."""
+        rid = self.n + idx
+        assert idx < self.num_ro, "construct the network with num_ro"
+        assert rid not in self.procs or self.procs[rid].poll() is not None
+        args = [sys.executable, "-m", "tpubft_torch.apps.ro_replica",
+                "--replica", str(rid), "--f", str(self.f),
+                "--c", str(self.c), "--ro", str(self.num_ro),
+                "--clients", str(self.num_clients),
+                "--base-port", str(self.base_port),
+                "--metrics-port", str(self.metrics_base + rid),
+                "--diag-port", str(self.diag_base + rid),
+                "--device", self.device,
+                "--seed", self.seed,
+                "--checkpoint-window", str(self.checkpoint_window),
+                "--threshold-scheme", self.threshold_scheme,
+                "--client-sig-scheme", self.client_sig_scheme,
+                "--transport", self.transport] + (extra_args or [])
+        if self.transport in ("tls", "tls-mux"):
+            args += ["--certs-dir", self._tls_material()]
+        if self.log_dir:
+            os.makedirs(self.log_dir, exist_ok=True)
+            out = open(os.path.join(self.log_dir, f"ro-{rid}.log"), "ab")
+        else:
+            out = subprocess.DEVNULL
+        self._spawned_at[rid] = time.monotonic()
+        self.start_s.pop(rid, None)
+        self.procs[rid] = subprocess.Popen(args, env=child_env(extra_env),
+                                           stdout=out, stderr=out)
+        if out is not subprocess.DEVNULL:
+            out.close()
+        return rid
 
     def stop_all(self) -> None:
         for r, p in list(self.procs.items()):

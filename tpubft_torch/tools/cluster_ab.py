@@ -3,7 +3,8 @@ two checkouts, or the in-memory and persistent clusters at one client
 count, on one card.
 
     python3 tpubft_torch/tools/cluster_ab.py --tree DIR
-        --phase process_cluster|persistent_cluster [--clients N]
+        --phase process_cluster|persistent_cluster|tls_cluster
+        [--clients N]
 
 Imports DIR's chip_smoke.py (DIR: a checkout of the repo, whose
 tpubft_torch is the one imported and the one its replica processes run)
@@ -28,7 +29,7 @@ import os
 import subprocess
 import sys
 
-PHASES = ("process_cluster", "persistent_cluster")
+PHASES = ("process_cluster", "persistent_cluster", "tls_cluster")
 # what process_cluster prints beside its own load, absent here
 NO_IN_PROCESS = {"load": {"requests_per_s": None, "commit_latency_ms": None},
                  "config": {"clients": None}}
