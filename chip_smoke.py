@@ -107,21 +107,48 @@ line each; any failure exits non-zero:
            SKVBC ledger in memory, ReplicaConfig's defaults but
            device_min_verify_batch 4, so that the primary's PrePrepare
            batches of about 5 requests reach the card; each process's
-           start seconds printed). 32 closed-loop SkvbcClients
-           write kvbcbench blocks until 1,000 commit; 120 keys read
-           back; the four last_executed equal. Replica 3 is SIGKILLed,
-           300 more writes commit and the load goes on until the stable
-           checkpoint is past an empty replica's work window; replica 3
+           start seconds printed), each serving the thin-replica read
+           tier on its `--trs-port`. A ThinReplicaClient in a process
+           of its own (python -m
+           tpubft_torch.tools.trs_follow, f=1, replica 3's server first,
+           so its first data source) subscribes from block 1 as 32
+           closed-loop SkvbcClients write kvbcbench blocks until 1,000
+           commit; 120 keys read back; the four last_executed equal;
+           within 30 s the
+           stream has delivered every block up to the cluster's last,
+           each acknowledged write's keys and values at its block, none
+           missing or twice. Replica 3 is SIGKILLed, 300 more writes
+           commit and the load goes on until the stable checkpoint is
+           past an empty replica's work window (the client's generation
+           must rise: it rotated to another data source); replica 3
            restarts empty under the load until it has fetched 256 blocks
            by state transfer, then its last_executed must reach the
-           others'. From every process (its metrics and diagnostics
-           servers): signatures dispatched to the device, no degraded
-           verify, health healthy with every breaker closed, verify
-           section calls, SHA-256 calls in the restarted one, no netio
-           fallback, the wrappers' launches and the CUDA memory it
+           others'. The stream is checked again to the last block and
+           replica 0's server gives an anchor at or past the stable
+           checkpoint under f+1 signed checkpoints; each process's
+           `thinreplica` counters show pushed runs and no overflow.
+           After these four stop, a second network of four starts for
+           the read tier's proofs (its SKVBC state in the BLOCK_MERKLE
+           category, 4 clients, checkpoint windows of 5: a cut printed
+           under `reduced`, ROADMAP C.12); one-key writes go on until
+           replica 0's anchor covers 21 of them; then 20 verified reads
+           of acknowledged keys equal their last values, one historical
+           read at an earlier block its value there, an absent key
+           None; its proofs at least 21 in all, no overflow. The `trs`
+           step's own waits and reads take at most 15 s (the proof
+           network's start and stop are timed apart). From every
+           process (its metrics and
+           diagnostics servers): signatures dispatched to the device, no
+           degraded verify, health healthy with every breaker closed,
+           verify section calls, SHA-256 calls in the restarted one, no
+           netio fallback, the wrappers' launches and the CUDA memory it
            holds. Printed: requests/s and commit latency p50/p90/p99
            beside the ledger_replica phase's, the catch-up seconds and
-           blocks fetched;
+           blocks fetched, and under `trs` the blocks streamed, the
+           steady delivery lag from acknowledgement p50/p99 and apart
+           from it the rotation's gap (each beside its limit), the
+           generations, the anchor block, the verified reads' round trip
+           p50/p99 with the proof ledger's blocks, and the seconds;
   tls_cluster
            BASELINE config 5 as benchmarks/bench_e2e.py:87-90 and
            :248-300 run it: first, on this machine, the port's TLS
@@ -353,6 +380,13 @@ line each; any failure exits non-zero:
            its launches the mesh phase's sharded MSM routes;
   timing   each phase's wall seconds;
   done     the script's wall time from the first phase on.
+
+Every phase runs under a ceiling (PHASE_CEILING_S: three times its
+seconds in a recorded run, at least 90 s) and the whole run under
+RUN_CEILING_S (1,140 s): past one, the Watchdog prints the phase, its
+seconds and its ceiling, dumps every thread's stack and the replica
+processes' log tails, kills the processes the run started and exits 1.
+A phase run below its full depth prints what it cut under `reduced`.
 
 Every cluster phase runs the autotuner at its default (a poll a second)
 and prints its report (tuner_report): polls, decisions, replica 0's knob
@@ -924,6 +958,16 @@ def percentile(sorted_ms, q: float) -> float:
                          int(round(q * (len(sorted_ms) - 1))))]
 
 
+def _reduced(fn, **run) -> dict:
+    """The arguments of phase `fn` that this run sets apart from their
+    defaults, the phase's full depth: {name: {"default": d, "run": v}};
+    each phase prints it under `reduced`."""
+    import inspect
+    params = inspect.signature(fn).parameters
+    return {k: {"default": params[k].default, "run": v}
+            for k, v in run.items() if v != params[k].default}
+
+
 class _ClosedLoop:
     """`n` clients in a closed loop, one write outstanding each, until
     `until(commits)` holds or `budget_s` has passed. `write(idx)` sends
@@ -1112,9 +1156,10 @@ def phase_replica(torch, dev, clients: int = 100, target: int = 3000,
     rep0 = cluster.replicas[0]
     assert rep0.keys.threshold_scheme == "multisig-ed25519", \
         rep0.keys.threshold_scheme
+    reduced = _reduced(phase_replica, target=target)
     emit({"phase": label, "step": "config", "n": cluster.n, "f": 1,
           "c": 0, "clients": clients, "target_requests": target,
-          "budget_s": budget_s,
+          "budget_s": budget_s, "reduced": reduced,
           "scheme": rep0.keys.threshold_scheme, "config": cfg,
           "durability_pipeline": rep0.cfg.durability_pipeline,
           "autotune_enabled": rep0.cfg.autotune_enabled,
@@ -1174,7 +1219,7 @@ def phase_replica(torch, dev, clients: int = 100, target: int = 3000,
         tuner = tuner_report(reps)
     finally:
         cluster.stop()
-    out = {"phase": label, "committed": done,
+    out = {"phase": label, "committed": done, "reduced": reduced,
            "load_s": load["load_s"], "requests_per_s": done / load["load_s"],
            "commit_latency_ms": load["commit_latency_ms"],
            "preprepares": primary, "executed_requests": executed,
@@ -1239,6 +1284,8 @@ class _KvbcbenchWrites:
         self.timeout_ms = timeout_ms
         self.acked = {}
         self.next_write = [0] * len(skvbc_clients)
+        # a list to append (block, writeset, acknowledged at) to, or None
+        self.log = None
 
     def __call__(self, idx: int) -> None:
         j = self.next_write[idx]
@@ -1250,6 +1297,8 @@ class _KvbcbenchWrites:
             raise AssertionError(f"write rejected: {reply}")
         self.next_write[idx] += 1
         self.acked.update(ws)
+        if self.log is not None:
+            self.log.append((reply.latest_block, ws, time.monotonic()))
 
 
 def _durability_totals(reps) -> dict:
@@ -1848,12 +1897,321 @@ class _ProcessCluster:
         return out
 
 
+class _TrsCheck:
+    """The thin-replica read tier over a process network's replicas, each
+    serving on `net.trs_base + r` (`--trs-port`). The stream is followed
+    by `python -m tpubft_torch.tools.trs_follow` in a process of its own
+    (its ThinReplicaClient's threads stay off this process, which drives
+    the load), with replica `first`'s server first, so that replica is
+    its first data source; it writes each delivered block, and each
+    rotation, to a file this object reads. The anchor and the verified
+    reads go through a ThinReplicaClient here (f = net.f, the cluster's
+    keys as its checkpoint verifier). `writes.log` collects the
+    acknowledged writes (block, writeset, time). `seconds` counts what
+    this object adds to a phase: its waits, reads and set-up."""
+
+    def __init__(self, net, writes, first: int):
+        from tpubft_torch.consensus.keys import ClusterKeys
+        from tpubft_torch.thinreplica import (ThinReplicaClient,
+                                              keys_cert_verifier)
+        t0 = time.monotonic()
+        self.net = net
+        self.writes = writes
+        writes.log = []
+        self.order = [first] + [r for r in range(net.n) if r != first]
+        self.endpoints = [("127.0.0.1", net.trs_base + r)
+                          for r in self.order]
+        keys = ClusterKeys.generate(net._node_cfg(), net.num_clients,
+                                    seed=net.seed.encode())
+        self.client = ThinReplicaClient(
+            self.endpoints, f_val=net.f,
+            cert_verifier=keys_cert_verifier(keys))
+        self.follower = None
+        self.stream_path = None
+        self._offset = 0
+        self.delivered = {}   # block -> (kv, delivered at)
+        self.duplicates = []
+        self.generation = 0
+        self.generation_t = {}   # generation -> when the follower entered it
+        self.seconds = time.monotonic() - t0
+
+    def subscribe(self, stream_path: str) -> None:
+        """Start the follower, subscribed from block 1, writing to
+        `stream_path`."""
+        from tpubft_torch.apps.simple_test import child_env
+        t0 = time.monotonic()
+        self.stream_path = stream_path
+        argv = [sys.executable, "-m", "tpubft_torch.tools.trs_follow",
+                "--f", str(self.net.f), "--out", stream_path,
+                "--exit-on-stdin-eof"]
+        for host, port in self.endpoints:
+            argv += ["--endpoint", f"{host}:{port}"]
+        self.follower = subprocess.Popen(
+            argv, stdin=subprocess.PIPE, stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL, cwd=HERE, env=child_env())
+        self.seconds += time.monotonic() - t0
+
+    def _read(self) -> None:
+        """Take in the follower's lines written since the last read."""
+        if self.stream_path is None or not os.path.exists(self.stream_path):
+            return
+        with open(self.stream_path, "rb") as f:
+            f.seek(self._offset)
+            data = f.read()
+        end = data.rfind(b"\n") + 1
+        self._offset += end
+        for line in data[:end].splitlines():
+            rec = json.loads(line)
+            if "generation" in rec:
+                self.generation = rec["generation"]
+                self.generation_t[self.generation] = rec["t"]
+                continue
+            if rec["block"] in self.delivered:
+                self.duplicates.append(rec["block"])
+            self.delivered[rec["block"]] = (
+                {bytes.fromhex(k): bytes.fromhex(v) for k, v in rec["kv"]},
+                rec["t"])
+
+    def _contiguous(self) -> int:
+        """The highest block b with every block 1..b delivered."""
+        self._read()
+        b = 0
+        while b + 1 in self.delivered:
+            b += 1
+        return b
+
+    def streamed(self, kv_client, bound_s: float = 30.0,
+                 killed_at: float = None) -> dict:
+        """Wait (at most `bound_s`) until every block up to the cluster's
+        last block is delivered; every acknowledged write's keys and
+        values must be at its block, none missing or delivered twice.
+        -> blocks, the steady delivery lag from acknowledgement (ms, p50
+        and p99), the generations and the seconds waited. Where the data
+        source was SIGKILLed at `killed_at` (time.monotonic()), the
+        writes acknowledged from then until the follower's next
+        generation are the rotation's, apart from the steady lag: the
+        seconds from the kill to that generation and their largest lag
+        (`rotation`)."""
+        t0 = time.monotonic()
+        head = kv_client.get_last_block(timeout_ms=30000)
+        while self._contiguous() < head:
+            if time.monotonic() - t0 > bound_s:
+                raise AssertionError(
+                    f"trs: blocks 1..{self._contiguous()} of {head} "
+                    f"delivered after {bound_s} s (generation "
+                    f"{self.generation}, follower exit "
+                    f"{self.follower.poll()})")
+            time.sleep(0.02)
+        waited = time.monotonic() - t0
+        rotated_at = None
+        if killed_at is not None:
+            rotated_at = min((t for t in self.generation_t.values()
+                              if t >= killed_at), default=None)
+        lags, rotation, wrong = [], [], []
+        for block, ws, acked_at in list(self.writes.log):
+            kv, at = self.delivered.get(block, ({}, None))
+            if at is None or any(kv.get(k) != v for k, v in ws):
+                wrong.append(block)
+            elif rotated_at is not None \
+                    and killed_at <= acked_at <= rotated_at:
+                rotation.append((at - acked_at) * 1e3)
+            else:
+                lags.append((at - acked_at) * 1e3)
+        if self.duplicates or wrong:
+            raise AssertionError(f"trs: blocks delivered twice "
+                                 f"{self.duplicates[:5]}, writes not at "
+                                 f"their block {wrong[:5]}")
+        self.seconds += time.monotonic() - t0
+        lags.sort()
+        out = {"head": head, "blocks_streamed": len(self.delivered),
+               "writes_checked": len(lags) + len(rotation),
+               "delivery_lag_ms": {"p50": percentile(lags, 0.5),
+                                   "p99": percentile(lags, 0.99),
+                                   "writes": len(lags)} if lags else None,
+               "generations": self.generation,
+               "wait_s": waited}
+        if rotated_at is not None:
+            out["rotation"] = {
+                "kill_to_next_generation_ms": (rotated_at - killed_at) * 1e3,
+                "writes": len(rotation),
+                "max_lag_ms": max(rotation, default=None)}
+        return out
+
+    def rotated(self, generation: int, bound_s: float = 15.0) -> int:
+        """Wait (at most `bound_s`) until the follower's client has left
+        the generation it was in when its data source died. -> the
+        generation."""
+        t0 = time.monotonic()
+        self._read()
+        while self.generation <= generation:
+            self._read()
+            if time.monotonic() - t0 > bound_s:
+                raise AssertionError(f"trs: still in generation "
+                                     f"{generation} {bound_s} s after its "
+                                     "data source died")
+            time.sleep(0.02)
+        self.seconds += time.monotonic() - t0
+        return self.generation
+
+    def anchor(self, server_replica: int) -> dict:
+        """From replica `server_replica`'s server: fetch and verify the
+        checkpoint anchor (f+1 signed checkpoints over the digest its
+        block row hashes to), which must be at or past the stable
+        checkpoint read just before."""
+        t0 = time.monotonic()
+        stable = self.net.metrics(server_replica).get(
+            "replica", "gauges", "last_stable_seq")
+        block = self.client.fetch_anchor(
+            server=self.order.index(server_replica))
+        seq = self.client._anchor_seq
+        self.seconds += time.monotonic() - t0
+        if not block or seq < (stable or 0):
+            raise AssertionError(f"trs: anchor {block} at checkpoint {seq}, "
+                                 f"the stable checkpoint {stable}")
+        return {"anchor_block": block, "anchor_checkpoint": seq,
+                "stable_checkpoint": stable}
+
+    def anchored_reads(self, server_replica: int, reads: int = 20,
+                       seed: int = 21) -> dict:
+        """The anchor (`anchor`) from replica `server_replica`'s server,
+        then `reads` verified reads of acknowledged keys last written at
+        or below the anchored block (each its last acknowledged value),
+        one historical read at an earlier block (that block's value) and
+        an absent key (None). The SKVBC state must be in its BLOCK_MERKLE
+        category (`--merkle`)."""
+        import numpy as np
+        out = self.anchor(server_replica)
+        t0 = time.monotonic()
+        server = self.order.index(server_replica)
+        block = out["anchor_block"]
+        last = {}
+        for b, ws, _t in sorted(self.writes.log, key=lambda e: e[0]):
+            for k, v in ws:
+                last[k] = (b, v)
+        under = sorted(k for k, (b, _v) in last.items() if b <= block)
+        rng = np.random.default_rng(seed)
+        keys = [under[i] for i in rng.choice(len(under), size=min(
+            reads, len(under)), replace=False)]
+        # the historical read: a key last written within 40 blocks below
+        # the anchor, read at that earlier block
+        near = [k for k in under if block - 40 <= last[k][0] < block]
+        rtt, wrong = [], []
+        for k in keys:
+            t = time.perf_counter()
+            got = self.client.verified_read("kv", k, server=server)
+            rtt.append((time.perf_counter() - t) * 1e3)
+            if got != last[k][1]:
+                wrong.append(k)
+        hist = None
+        if near:
+            k = near[0]
+            t = time.perf_counter()
+            got = self.client.verified_read("kv", k, block_id=last[k][0],
+                                            server=server)
+            rtt.append((time.perf_counter() - t) * 1e3)
+            hist = {"block": last[k][0], "equal": got == last[k][1]}
+        t = time.perf_counter()
+        absent = self.client.verified_read("kv", b"trs/absent",
+                                           server=server)
+        rtt.append((time.perf_counter() - t) * 1e3)
+        self.seconds += time.monotonic() - t0
+        rtt.sort()
+        out.update(reads=len(keys), wrong=len(wrong), historical=hist,
+                   absent_is_none=absent is None,
+                   read_ms={"p50": percentile(rtt, 0.5),
+                            "p99": percentile(rtt, 0.99)})
+        if len(keys) < reads or wrong or not hist or not hist["equal"] \
+                or absent is not None:
+            raise AssertionError(f"trs: anchored reads {out}")
+        return out
+
+    def metrics(self, replicas) -> dict:
+        """The `thinreplica` component of each replica process: pushed
+        runs above 0 on each, proofs summed, no overflow."""
+        t0 = time.monotonic()
+        per = {}
+        for r in replicas:
+            m = self.net.metrics(r)
+            per[r] = {k: m.get("thinreplica", "counters", k) or 0 for k in (
+                "trs_pushed_runs", "trs_proofs", "trs_overflows",
+                "trs_dropped_subscribers")}
+        self.seconds += time.monotonic() - t0
+        return per
+
+    def stop(self) -> None:
+        self.client.stop()
+        if self.follower is not None and self.follower.poll() is None:
+            self.follower.terminate()
+            try:
+                self.follower.wait(10)
+            except subprocess.TimeoutExpired:
+                self.follower.kill()
+                self.follower.wait()
+
+
+# Where the read tier's verified reads run: a network apart from config
+# 1's, cut to what a BLOCK_MERKLE ledger in MemoryDB can take (ROADMAP
+# C.12: a block writes a node row for each level of each key's path, and
+# MemoryDB keeps its keys sorted by insertion, so a block's cost grows
+# with the ledger). Printed under process_cluster's `reduced`.
+TRS_PROOF_NETWORK = {"clients": 4, "checkpoint_window": 5,
+                     "work_window": 10, "keys_a_write": 1}
+
+
+def _trs_proof_network(net_cls, log_dir: str):
+    """The network for the read tier's proofs (TRS_PROOF_NETWORK): four
+    replica processes on the card with the SKVBC state in its
+    BLOCK_MERKLE category (`--merkle`), checkpoint windows of 5 so an
+    anchor forms after a few writes."""
+    cut = TRS_PROOF_NETWORK
+    return net_cls(f=1, num_clients=cut["clients"],
+                   seed="chip-smoke-trs-proofs", device="cuda",
+                   log_dir=log_dir, merkle=True,
+                   checkpoint_window=cut["checkpoint_window"],
+                   work_window=cut["work_window"])
+
+
+def _trs_proven_reads(net, reads: int = 20, bound_s: float = 30.0) -> dict:
+    """On `net` (started, BLOCK_MERKLE state): its clients write one key
+    each a write, in a closed loop, until replica 0's anchor covers
+    `reads` + 1 acknowledged keys (at most `bound_s`); then
+    `_TrsCheck.anchored_reads`, the ledger's last block and every
+    process's `thinreplica` counters."""
+    kvs = [net.skvbc_client(i) for i in range(net.num_clients)]
+    rows = [[("kv", b"k%d" % b, b"v%d" % b, "block_merkle")]
+            for b in range(64)]
+    writes = _KvbcbenchWrites(kvs, rows, timeout_ms=30000)
+    trs = _TrsCheck(net, writes, first=3)
+    loop = _ClosedLoop(len(kvs), writes)
+    t0 = time.monotonic()
+    try:
+        while True:
+            loop.run(lambda n: n >= 8, budget_s=bound_s)
+            if loop.errors:
+                raise AssertionError(f"trs proofs: {loop.errors[:3]}")
+            block = trs.client.fetch_anchor(server=trs.order.index(0))
+            if block and sum(1 for b, _ws, _t in writes.log
+                             if b <= block) > reads:
+                break
+            if time.monotonic() - t0 > bound_s:
+                raise AssertionError(f"trs proofs: anchor {block} after "
+                                     f"{len(writes.log)} writes")
+        out = trs.anchored_reads(server_replica=0, reads=reads)
+        out["writes"] = len(writes.log)
+        out["ledger_blocks"] = kvs[0].get_last_block(timeout_ms=30000)
+        out["metrics"] = trs.metrics(range(net.n))
+        return out
+    finally:
+        trs.stop()
+
+
 def phase_process_cluster(torch, dev, ledger_replica: dict,
                           clients: int = 32, target: int = 1000,
                           reads: int = 120, behind: int = 300,
                           min_fetched: int = 256,
                           device_min_verify_batch: int = 4,
-                          budget_s: float = 150.0) -> dict:
+                          budget_s: float = 150.0,
+                          thin_replica: bool = True) -> dict:
     """Config 1 as BASELINE.md runs it ("simpleTest 4-replica (f=1)
     UDP"): four replica OS processes (python -m
     tpubft_torch.apps.skvbc_replica, the SKVBC ledger in memory, every
@@ -1878,6 +2236,19 @@ def phase_process_cluster(torch, dev, ledger_replica: dict,
     process holds. Printed beside the in-process ledger_replica phase's
     rate and latency from the same run.
 
+    The thin-replica read tier rides the same processes (`_TrsCheck`,
+    replica 3 the first data source of its follower process): the stream
+    from block 1 through the load, the SIGKILL (the client rotates) and
+    the catch-up, every acknowledged write at its block; the anchor, with
+    the cluster's keys as the checkpoint verifier, at the end. Its
+    verified reads run after this network has stopped, on a second one
+    (`_trs_proof_network`, `_trs_proven_reads`) whose SKVBC state is in
+    the BLOCK_MERKLE category the proofs need, cut to TRS_PROOF_NETWORK
+    (printed under `reduced`). With `thin_replica` False there is no
+    follower and no proof network (each replica still serves on its
+    `--trs-port`): tools/cluster_ab.py's A/B of what the follower costs
+    config 1's load.
+
     `device_min_verify_batch` is 4, not ReplicaConfig's 32 (the
     reference's TPU crossover): with 32 clients a PrePrepare holds about
     5 requests, and at 32 the primary verified every signature on the
@@ -1898,19 +2269,37 @@ def phase_process_cluster(torch, dev, ledger_replica: dict,
            "crypto_backend": net.crypto_backend,
            "checkpoint_window": net.checkpoint_window,
            "work_window": net.work_window,
-           "device_min_verify_batch": device_min_verify_batch}
+           "device_min_verify_batch": device_min_verify_batch,
+           "thin_replica": thin_replica}
     cl = _ProcessCluster("process_cluster", net, clients, out)
+    trs = None
     try:
         cl.start()
+        if thin_replica:
+            trs = _TrsCheck(net, cl.writes, first=3)
+            trs.subscribe(os.path.join(log_dir, "stream.jsonl"))
         out["last_executed_after_load"] = cl.load(
             target, reads, seed=9, budget_s=budget_s / 3)
+        if trs is not None:
+            emit({"phase": "process_cluster", "step": "trs_stream",
+                  **trs.streamed(cl.kvs[0])})
+            trs._read()
+            generation = trs.generation
         # replica 3's counts die with it: read them first
         before_kill = _replica_report(net, 3)
+        killed_at = time.monotonic()
         cl.kill_behind(3, min_stable=net.work_window, min_writes=behind,
                        budget_s=budget_s / 3)
+        if trs is not None:
+            rotated_to = trs.rotated(generation)
         catch_up = cl.restart_under_load(3, min_fetched=min_fetched,
                                          min_seq=net.work_window,
                                          budget_s=budget_s / 3)
+        if trs is not None:
+            stream = trs.streamed(cl.kvs[0], killed_at=killed_at)
+            anchor = trs.anchor(server_replica=0)
+            trs_metrics = trs.metrics(range(net.n))
+            trs.stop()
         reports = {r: _replica_report(net, r) for r in range(net.n)}
         catch_up.update(restart_start_s=catch_up.pop("up_s"),
                         blocks_fetched=reports[3]["blocks_fetched"],
@@ -1929,8 +2318,17 @@ def phase_process_cluster(torch, dev, ledger_replica: dict,
                                f"{reports[3]['blocks_fetched']} blocks, "
                                f"fewer than {min_fetched}")
     finally:
+        if trs is not None:
+            trs.stop()
         net.stop_all()
         shutil.rmtree(log_dir, ignore_errors=True)
+    if trs is not None:
+        out["trs"] = _trs_step(trs, stream, rotated_to, anchor, trs_metrics,
+                               BftTestNetwork, cl.problems)
+        out["reduced"] = {"trs_proof_network": {
+            "default": "config 1's network",
+            "run": {**TRS_PROOF_NETWORK,
+                    "ledger_blocks": out["trs"]["proofs"]["ledger_blocks"]}}}
     inproc = ledger_replica["load"]
     out["beside_in_process"] = {
         "process_requests_per_s": out["load"]["requests_per_s"],
@@ -1939,6 +2337,68 @@ def phase_process_cluster(torch, dev, ledger_replica: dict,
         "in_process_commit_latency_ms": inproc["commit_latency_ms"],
         "in_process_clients": ledger_replica["config"]["clients"]}
     return cl.finish(t_phase)
+
+
+def _trs_step(trs, stream: dict, rotated_to: int, anchor: dict,
+              trs_metrics: dict, net_cls, problems: list) -> dict:
+    """process_cluster's `trs` step once config 1's network has stopped:
+    the verified reads on the proof network (started, read and stopped
+    here), then the step's line. `step_s` is what the check adds on its
+    own (its waits and reads on both networks); the proof network's
+    start and stop are timed apart (`proof_network_s`). The steady
+    delivery lag and the rotation's gap are each printed beside their
+    limit (PERF.md §2): the client's 250 ms first retry, and its stall
+    timeout plus a second to reconnect. Problems go to `problems`."""
+    import shutil
+    import tempfile
+
+    from tpubft_torch.thinreplica import ThinReplicaClient
+    proof_dir = tempfile.mkdtemp(prefix="chip-smoke-trs-")
+    proof_net = _trs_proof_network(net_cls, proof_dir)
+    t0 = time.monotonic()
+    try:
+        proof_net.start_all(timeout=120)
+        t1 = time.monotonic()
+        proofs = _trs_proven_reads(proof_net)
+        t2 = time.monotonic()
+    finally:
+        proof_net.stop_all()
+        shutil.rmtree(proof_dir, ignore_errors=True)
+    step_s = trs.seconds + t2 - t1
+    lag, rotation = stream["delivery_lag_ms"], stream.get("rotation", {})
+    rotation_limit_ms = (ThinReplicaClient.STALL_TIMEOUT_S + 1.0) * 1e3
+    out = {
+        "blocks_streamed": stream["blocks_streamed"],
+        "writes_checked": stream["writes_checked"],
+        "delivery_lag_ms": {**lag, "limit_p99": 250.0,
+                            "met": lag["p99"] < 250.0} if lag else None,
+        "rotation": {**rotation, "limit_ms": rotation_limit_ms,
+                     "met": (rotation.get("max_lag_ms") or 0.0)
+                     < rotation_limit_ms},
+        "generations": stream["generations"],
+        "generation_after_kill": rotated_to,
+        "first_data_source": trs.order[0], **anchor,
+        "metrics": trs_metrics,
+        "proofs": {k: proofs[k] for k in (
+            "anchor_block", "anchor_checkpoint", "stable_checkpoint",
+            "writes", "ledger_blocks", "reads", "wrong", "historical",
+            "absent_is_none", "metrics")},
+        # on the proof network's ledger, not config 1's (`reduced`)
+        "verified_read_ms": {**proofs["read_ms"],
+                             "ledger_blocks": proofs["ledger_blocks"]},
+        "proof_network_s": {"start": t1 - t0, "reads": t2 - t1,
+                            "stop": time.monotonic() - t2},
+        "step_s": step_s}
+    emit({"phase": "process_cluster", "step": "trs", **out})
+    pm = proofs["metrics"]
+    if any(m["trs_pushed_runs"] < 1 for m in trs_metrics.values()) \
+            or sum(m["trs_proofs"] for m in pm.values()) < 21 \
+            or any(m["trs_overflows"] for m in list(
+                trs_metrics.values()) + list(pm.values())):
+        problems.append(f"trs metrics: {trs_metrics}, proof network {pm}")
+    if step_s > 15.0:
+        problems.append(f"the trs step took {step_s:.1f} s")
+    return out
 
 
 _BLOCK_CRYPTOGRAPHY = """
@@ -2145,9 +2605,16 @@ def _view_entries(net) -> dict:
 def _print_log_tails(log_dir: str, lines: int = 60) -> None:
     """The last `lines` lines of each replica process's log, to stderr
     (a failed cluster phase's diagnosis)."""
-    for name in sorted(os.listdir(log_dir)):
-        with open(os.path.join(log_dir, name), errors="replace") as f:
-            tail = f.readlines()[-lines:]
+    _print_log_tails_of(log_dir, os.listdir(log_dir), lines)
+
+
+def _print_log_tails_of(log_dir: str, names, lines: int = 60) -> None:
+    for name in sorted(names):
+        try:
+            with open(os.path.join(log_dir, name), errors="replace") as f:
+                tail = f.readlines()[-lines:]
+        except OSError:
+            continue
         print(f"---- {name} ----\n" + "".join(tail), file=sys.stderr,
               flush=True)
 
@@ -3723,6 +4190,7 @@ def phase_ecdsa_ledger_replica(torch, dev, clients: int = 16,
     emit({"phase": "ecdsa_ledger_replica", "step": "config", "n": cluster.n,
           "f": f, "c": 0, "clients": clients, "target_requests": target,
           "read_back": reads, "budget_s": budget_s, "config": cfg,
+          "reduced": _reduced(phase_ecdsa_ledger_replica, target=target),
           "scheme": rep0.keys.threshold_scheme,
           "client_scheme": rep0.keys.client_sig_scheme,
           "ecdsa_crossover": crypto_cuda.ecdsa_crossover(),
@@ -3803,6 +4271,7 @@ def phase_ecdsa_ledger_replica(torch, dev, clients: int = 16,
         cluster.stop()
         shutil.rmtree(wal_dir, ignore_errors=True)
     out = {"phase": "ecdsa_ledger_replica", "load": load,
+           "reduced": _reduced(phase_ecdsa_ledger_replica, target=target),
            "rlc_lanes": lanes, "read_back": read_back,
            "replicas_agree": agree, "common_head": common, **health,
            "tuner": tuner, "wall_s": time.monotonic() - t_phase}
@@ -4345,7 +4814,8 @@ def _route_ms(torch, fn, reps: int = 3) -> float:
     return sorted(out)[len(out) // 2]
 
 
-def phase_mesh(torch, dev, sm_clock_mhz: float) -> dict:
+def phase_mesh(torch, dev, sm_clock_mhz: float,
+               cluster_writes: int = 1000) -> dict:
     """The mesh tier (parallel/sharding.py) on the card.
     (a) the default inventory on this host: one slot, no mesh
     (`mesh_plan().mesh is None`), no `device.chip*` breaker; a 256-item
@@ -4369,8 +4839,8 @@ def phase_mesh(torch, dev, sm_clock_mhz: float) -> dict:
     device breaker closed, the health payload's mesh.evicted == [2];
     cleared, it is readmitted after its cooldown (waited on state).
     (d) config 1's four-replica cluster (the replica phase) on the 4
-    slots until 1,000 writes commit: crypto_shard_count registered,
-    mesh_sharded_verifies > 0 on every replica.
+    slots until `cluster_writes` writes commit: crypto_shard_count
+    registered, mesh_sharded_verifies > 0 on every replica.
     (e) graft_entry.dryrun_multichip(4)."""
     import numpy as np
 
@@ -4397,6 +4867,7 @@ def phase_mesh(torch, dev, sm_clock_mhz: float) -> dict:
     slots = cards if cards > 1 else MESH_SLOTS
     sick = min(2, slots - 1)
     out = {"phase": "mesh", "slots": slots, "cards": cards,
+           "reduced": _reduced(phase_mesh, cluster_writes=cluster_writes),
            "note": "one card: all slots share it, so no time here is a "
                    "multi-card time" if cards == 1 else
                    "one slot a card"}
@@ -4626,7 +5097,8 @@ def phase_mesh(torch, dev, sm_clock_mhz: float) -> dict:
             problems.append(f"eviction: {evict}")
 
         # (d) config 1's cluster on the slots
-        rep = phase_replica(torch, dev, target=1000, label="mesh_replica")
+        rep = phase_replica(torch, dev, target=cluster_writes,
+                            label="mesh_replica")
         knobs = rep["tuner"].get("knobs_r0", {})
         cluster = {k: rep[k] for k in (
             "committed", "requests_per_s", "commit_latency_ms",
@@ -4964,6 +5436,9 @@ def phase_kernels(torch, dev, plane, replica, ledger_replica,
     from tpubft_torch import testing
     from tpubft_torch.ops import ed25519 as ops
     from tpubft_torch.ops import ed25519_cuda as kc
+    # each sub-step's wall seconds, printed in the line
+    steps_s = {}
+    t_step = time.monotonic()
     b = plane["requests_per_pp"]
     items = testing.ed25519_corpus(b, seed=11)
     prep = ops.prepare_batch(items)
@@ -5000,13 +5475,22 @@ def phase_kernels(torch, dev, plane, replica, ledger_replica,
            "max_abs_err": err, "batch": b,
            "host_ms": cuda_ms(lambda: kc.verify(*args), 20),
            "ms": graph_ms(lambda: kc.verify(*args), 20),
-           "plain_ms": cuda_ms(lambda: ops.plain_verify_kernel(*args), 1),
+           # the match's call above warmed the plain version up
+           "plain_ms": cuda_ms(lambda: ops.plain_verify_kernel(*args), 1,
+                               warmup=0),
            "library_ms": None,
            "critical_path_steps": kc.critical_path_steps()["total"]}
     bound = verify_bound_ms(b, sm_clock_mhz)
     for k in ("bound_ms", "bound_by", "executed_ops", "ops"):
         row[k] = bound[k]
     rows = [row]
+
+    def step(name):
+        nonlocal t_step
+        now = time.monotonic()
+        steps_s[name] = now - t_step
+        t_step = now
+    step("ed25519_verify")
     for r in ladder["rungs"]:
         if r["kernel"] == "ed25519_verify":
             continue
@@ -5030,14 +5514,20 @@ def phase_kernels(torch, dev, plane, replica, ledger_replica,
                 "lanes", "lanes_per_element", "ms", "host_ms", "bound_ms",
                 "share_of_bound", "mismatches_vs_int",
                 "mismatches_vs_plain")}
+    step("ladder_rows")
     rows.append(sha256_kernel_row(torch, dev, ledger_replica,
                                   process_cluster, persistent_cluster,
                                   v4_cluster, ledger, digest, sm_clock_mhz))
+    step("sha256")
     rows += bls_kernel_rows(torch, dev, bls_plane, bls_ledger, offload,
                             sm_clock_mhz)
+    step("bls")
     rows += ecdsa_kernel_rows(torch, dev, ecdsa_plane, ecdsa_ledger, offload,
                               tls_cluster, sm_clock_mhz)
+    step("ecdsa")
     rows.append(combine_kernel_row(mesh))
+    step("combine")
+    emit({"phase": "kernels", "steps_s": steps_s})
     out = {"kernels": rows}
     emit(out)
     bad = [r["name"] for r in rows if r["max_abs_err"]]
@@ -5138,7 +5628,8 @@ def sha256_kernel_row(torch, dev, ledger_replica, process_cluster,
                 lambda: sha256_cuda.sha256_raw(*inputs["mixed_window"]), 20),
             "mixed_window_chain_floor_ms": sha256_cuda.chain_floor_ms(
                 [len(r) for r in mixed], sm_clock_mhz),
-            "plain_ms": cuda_ms(lambda: sha.plain_sha256_raw(data, offs), 1),
+            "plain_ms": cuda_ms(lambda: sha.plain_sha256_raw(data, offs), 1,
+                                warmup=0),
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
             "ops": bound["ops"], "bytes": bound["bytes"],
             "chain_floor_ms": sha256_cuda.chain_floor_ms(lengths,
@@ -5268,6 +5759,133 @@ def bls_kernel_rows(torch, dev, bls_plane, bls_ledger, offload,
     return rows
 
 
+# Each phase's ceiling in seconds: three times its seconds in the
+# `timing` line of the recorded run that PERF.md §6 names as their
+# source (this script from a git archive on an H100 80GB HBM3 at 700 W,
+# `done` at 918.5 s), and at least 90 s. The phases not named there took
+# 25.9 s or less, so 90 s. The whole run's ceiling keeps it under the
+# 1,200 s limit.
+CALL11_PHASE_S = {"ledger_replica": 190.8, "kernels": 92.3,
+                  "persistent_cluster": 89.2, "tls_cluster": 83.1,
+                  "v4_cluster": 81.1, "mesh": 70.0,
+                  "ecdsa_ledger_replica": 69.6, "process_cluster": 48.9,
+                  "bls_ledger_replica": 32.7, "replica": 30.6}
+PHASES = ("device", "ladder", "kernel", "plane", "replica",
+          "ledger_replica", "process_cluster", "tls_cluster",
+          "persistent_cluster", "v4_cluster", "bls_plane",
+          "bls_ledger_replica", "ecdsa_plane", "ecdsa_ledger_replica",
+          "offload", "mesh", "ledger", "digest", "rate", "kernels")
+PHASE_CEILING_S = {p: round(max(90.0, 3 * CALL11_PHASE_S.get(p, 0.0)), 1)
+                   for p in PHASES}
+RUN_CEILING_S = 1140.0
+# main()'s cuts of depth: in-process config 1 at smaller checkpoint and
+# work windows (the process phases run 150/300), fewer writes where
+# another phase drives the same path.
+SMOKE_CUTS = {"replica_target": 1000, "ledger_checkpoint_window": 50,
+              "ledger_work_window": 100, "ecdsa_ledger_target": 150,
+              "mesh_cluster_writes": 300}
+
+
+def _child_pids(root: int) -> list:
+    """Every live descendant of process `root`, from /proc."""
+    parents = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # the fields after the command's closing parenthesis
+        parents.setdefault(int(stat.rsplit(")", 1)[1].split()[1]),
+                           []).append(int(d))
+    out, todo = [], [root]
+    while todo:
+        kids = parents.get(todo.pop(), [])
+        out += kids
+        todo += kids
+    return out
+
+
+class Watchdog:
+    """Holds every phase to its ceiling and the whole run to its own. A
+    thread checks every `poll_s`; when the phase in progress (or the
+    run) passes its ceiling it prints {"phase", "error": "over its
+    ceiling", "elapsed_s", "ceiling_s"}, dumps every thread's stack
+    (faulthandler), prints the tails of the replica processes' logs
+    (the `chip-smoke-*` directories under the temporary directory),
+    kills every process this one started, and exits 1. It never skips a
+    phase: the run ends there."""
+
+    def __init__(self, ceilings=None, run_ceiling_s: float = RUN_CEILING_S,
+                 poll_s: float = 0.5):
+        import threading
+        self.ceilings = dict(PHASE_CEILING_S if ceilings is None
+                             else ceilings)
+        self.run_ceiling_s = run_ceiling_s
+        self.poll_s = poll_s
+        self.t_run = time.monotonic()
+        self.phase, self.t_phase = "device", self.t_run
+        self.phase_s = {}
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._watch, daemon=True,
+                                        name="chip-smoke-watchdog")
+
+    def start(self) -> "Watchdog":
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._done.set()
+
+    def timed(self, name, fn, *args):
+        """Run phase `name`, `fn(*args)`, under its ceiling; its wall
+        seconds go to `phase_s`."""
+        self.phase, self.t_phase = name, time.monotonic()
+        try:
+            return fn(*args)
+        finally:
+            self.phase_s[name] = time.monotonic() - self.t_phase
+
+    def _watch(self) -> None:
+        while not self._done.wait(self.poll_s):
+            now = time.monotonic()
+            phase, t_phase = self.phase, self.t_phase
+            ceiling = self.ceilings.get(phase, 90.0)
+            if now - t_phase > ceiling:
+                self._fire(phase, now - t_phase, ceiling)
+            elif now - self.t_run > self.run_ceiling_s:
+                self._fire("run", now - self.t_run, self.run_ceiling_s)
+
+    def _fire(self, phase: str, elapsed: float, ceiling: float) -> None:
+        import faulthandler
+        import signal
+        import tempfile
+        emit({"phase": phase, "error": "over its ceiling",
+              "elapsed_s": elapsed, "ceiling_s": ceiling,
+              "in_phase": self.phase, "phase_s": self.phase_s})
+        sys.stdout.flush()
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        tmp = tempfile.gettempdir()
+        for d in sorted(os.listdir(tmp)):
+            path = os.path.join(tmp, d)
+            if d.startswith("chip-smoke-") and os.path.isdir(path):
+                for sub, _dirs, files in os.walk(path):
+                    if any(f.endswith(".log") for f in files):
+                        print(f"==== {sub} ====", file=sys.stderr)
+                        _print_log_tails_of(sub, [f for f in files
+                                                  if f.endswith(".log")])
+        for pid in _child_pids(os.getpid()):
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+        fail(f"phase {phase} over its ceiling of {ceiling:g} s")
+        sys.stderr.flush()
+        os._exit(1)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "tpubft_torch")):
         return fail("the tpubft_torch package is not beside chip_smoke.py")
@@ -5276,32 +5894,33 @@ def main() -> int:
         return fail("torch.cuda.is_available() is false: no card")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    t_start = time.monotonic()
-    info = phase_device(torch)
+    watchdog = Watchdog().start()
+    t_start = watchdog.t_run
     # each phase's wall seconds, printed before `done`
-    phase_s = {"device": time.monotonic() - t_start}
-
-    def timed(name, fn, *args):
-        t0 = time.monotonic()
-        try:
-            return fn(*args)
-        finally:
-            phase_s[name] = time.monotonic() - t0
-
+    phase_s = watchdog.phase_s
+    timed = watchdog.timed
+    info = timed("device", phase_device, torch)
     clock = info["clocks_max_sm_mhz"]
     if sys.argv[1:] == ["--mesh"]:
         # the mesh phase alone: over the host's cards where it has
         # several, else over virtual slots of the one card
-        phase_mesh(torch, dev, clock)
+        timed("mesh", phase_mesh, torch, dev, clock)
+        watchdog.stop()
         emit({"phase": "done", "wall_s": time.monotonic() - t_start})
         print(info["nvidia_smi"], flush=True)
         return 0
     ladder = timed("ladder", phase_ladder, torch, dev, clock)
     kernel = timed("kernel", phase_kernel, torch, dev)
     plane = timed("plane", phase_plane, torch, dev)
-    replica = timed("replica", phase_replica, torch, dev)
-    ledger_replica = timed("ledger_replica", phase_ledger_replica,
-                           torch, dev)
+    # The cuts of depth (each printed under its phase's `reduced`; PERF.md
+    # §4 has their seconds before and after). The deployment's settings
+    # still run whole elsewhere: config 1's windows 150/300 in the
+    # process phases, config 3 at n=31 with its timers.
+    replica = timed("replica", lambda: phase_replica(
+        torch, dev, target=SMOKE_CUTS["replica_target"]))
+    ledger_replica = timed("ledger_replica", lambda: phase_ledger_replica(
+        torch, dev, checkpoint_window=SMOKE_CUTS["ledger_checkpoint_window"],
+        work_window=SMOKE_CUTS["ledger_work_window"]))
     process_cluster = timed("process_cluster", phase_process_cluster,
                             torch, dev, ledger_replica)
     tls_cluster = timed("tls_cluster", phase_tls_cluster, torch, dev)
@@ -5314,11 +5933,14 @@ def main() -> int:
     bls_ledger = timed("bls_ledger_replica", phase_bls_ledger_replica,
                        torch, dev)
     ecdsa_plane = timed("ecdsa_plane", phase_ecdsa_plane, torch, dev)
-    ecdsa_ledger = timed("ecdsa_ledger_replica",
-                         phase_ecdsa_ledger_replica, torch, dev)
+    ecdsa_ledger = timed("ecdsa_ledger_replica", lambda: (
+        phase_ecdsa_ledger_replica(
+            torch, dev, target=SMOKE_CUTS["ecdsa_ledger_target"])))
     offload = timed("offload", phase_offload, torch, dev, bls_plane,
                     ecdsa_plane)
-    mesh = timed("mesh", phase_mesh, torch, dev, clock)
+    mesh = timed("mesh", lambda: phase_mesh(
+        torch, dev, clock,
+        cluster_writes=SMOKE_CUTS["mesh_cluster_writes"]))
     ledger = timed("ledger", phase_ledger, torch, dev)
     digest = timed("digest", phase_digest, torch, dev, ledger.pop("raws"))
     timed("rate", phase_rate, torch, dev, clock, info["nvidia_smi"])
@@ -5326,7 +5948,9 @@ def main() -> int:
           ledger_replica, process_cluster, tls_cluster, persistent_cluster,
           v4_cluster, kernel, ladder, ledger, digest, bls_plane, bls_ledger,
           ecdsa_plane, ecdsa_ledger, offload, mesh, clock)
-    emit({"phase": "timing", "phase_s": phase_s})
+    emit({"phase": "timing", "phase_s": phase_s,
+          "ceiling_s": watchdog.ceilings, "run_ceiling_s": RUN_CEILING_S})
+    watchdog.stop()
     emit({"phase": "done", "wall_s": time.monotonic() - t_start})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,8 +7,9 @@ bisection), a short config-1 replica cluster on the card, and an SKVBC ledger cl
 through the durability pipeline, one catch-up by state transfer whose
 windows go through the SHA-256 kernel), BASELINE config 5 over TLS
 under a view-change storm, config 1 on the v4 engine with a
-snapshot-provisioned replica, and the read-only replica, whose fetched
-windows go through the SHA-256 kernel. Marked `cuda`; each test
+snapshot-provisioned replica, the read-only replica, whose fetched
+windows go through the SHA-256 kernel, and the thin-replica read tier
+over replica processes. Marked `cuda`; each test
 skips where no card is present (run on the card:
 python -m pytest --noconftest tests/test_torch_cuda.py).
 """
@@ -783,6 +784,21 @@ def test_config5_storm_on_the_card(card):
     # its module name, as pytest imported it
     from test_torch_processes import config5_storm
     config5_storm("cuda")
+
+
+def test_thin_replica_stream_over_card_processes(card, tmp_path):
+    """The thin-replica read tier over four replica processes on the card
+    (tests/test_torch_processes.thin_replica_check): every acknowledged
+    write streamed at its block with no gap, the data source SIGKILLed
+    and rotated away from, anchored verified reads; the verify kernel
+    launched in every process and the SHA-256 kernel in the restarted
+    one."""
+    from test_torch_processes import thin_replica_check
+    devices = thin_replica_check("cuda", str(tmp_path))
+    for r, dev in devices.items():
+        assert dev["device"].startswith("cuda"), (r, dev)
+        assert dev["launches"]["ed25519_verify"] > 0, (r, dev)
+    assert devices[3]["launches"]["sha256"] > 0, devices[3]
 
 
 def test_persistent_cluster_on_the_card(card):

@@ -11,6 +11,7 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 
 import pytest
 
@@ -275,3 +276,144 @@ def test_udp_transport_loads_the_ports_own_netio():
     assert lib is not None, udp.load_error
     assert os.path.abspath(lib._name).startswith(
         os.path.join(ROOT, "tpubft_torch", "ops", "_build") + os.sep)
+
+
+_THIN_REPLICA_ALONE = r"""
+import sys, time
+import tpubft_torch.thinreplica
+from tpubft_torch.thinreplica import client, messages, server
+from tpubft_torch.consensus import messages as cm
+from tpubft_torch.crypto.cpu import Ed25519Signer, Ed25519Verifier
+from tpubft_torch.kvbc import BLOCK_MERKLE, BlockUpdates, KeyValueBlockchain
+from tpubft_torch.storage import MemoryDB
+bc = KeyValueBlockchain(MemoryDB(), use_device_hashing=False)
+for i in range(4):
+    bc.add_block(BlockUpdates().put("kv", b"k%d" % i, b"v%d" % i,
+                                    cat_type=BLOCK_MERKLE))
+signers = {i: Ed25519Signer.generate(seed=bytes([7 + i]) * 32)
+           for i in range(2)}
+certs = []
+for i, s in signers.items():
+    ck = cm.CheckpointMsg(sender_id=i, seq_num=8,
+                          state_digest=bc.block_digest(4), is_stable=False,
+                          res_pages_digest=b"", signature=b"")
+    ck.signature = s.sign(ck.signed_payload())
+    certs.append(ck.pack())
+vs = {i: Ed25519Verifier(s.public_bytes()) for i, s in signers.items()}
+srv = server.ThinReplicaServer(bc, anchor_fn=lambda: (8, 4, tuple(certs)))
+srv.start()
+trc = client.ThinReplicaClient(
+    [("127.0.0.1", srv.port)], f_val=1,
+    cert_verifier=lambda r, p, s: r in vs and vs[r].verify(p, s))
+assert trc.fetch_anchor() == 4
+assert trc.verified_read("kv", b"k2") == b"v2"
+assert trc.verified_read("kv", b"k9") is None
+got = []
+trc.subscribe(lambda b, kv: got.append(b), start_block=1)
+deadline = time.monotonic() + 30
+while len(got) < 4 and time.monotonic() < deadline:
+    time.sleep(0.02)
+trc.stop()
+srv.stop()
+assert got == [1, 2, 3, 4], got
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "tpubft", "cryptography"))
+print("LEAKED:" + ",".join(bad))
+"""
+
+
+def test_thin_replica_modules_import_nothing_of_the_reference():
+    """thinreplica/ (messages, server, client and the package) serves and
+    verifies in a process that imports nothing of JAX, of the reference
+    or of `cryptography`: an anchored verified read, an absent key and a
+    subscription over a port ledger."""
+    out = subprocess.run([sys.executable, "-c", _THIN_REPLICA_ALONE],
+                         capture_output=True, text=True, cwd=ROOT,
+                         env=_env(), timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED:\n" in out.stdout + "\n", out.stdout
+
+
+_TOOLS_WITHOUT_TORCH = r"""
+import os, sys, tempfile
+from tpubft_torch.kvbc import BlockUpdates, create_blockchain
+from tpubft_torch.storage.factory import open_db
+from tpubft_torch.tools import migrate_v4, snapshot
+d = tempfile.mkdtemp()
+src = open_db(os.path.join(d, "src.kvlog"))
+bc = create_blockchain(src, version="v1")
+for i in range(20):
+    bc.add_block(BlockUpdates().put("kv", b"k%d" % (i % 3), b"v%d" % i))
+src.close()
+sys.argv = ["migrate_v4", "--src", os.path.join(d, "src.kvlog"),
+            "--dst", os.path.join(d, "v4.kvlog"), "--from", "v1", "--to", "v4"]
+migrate_v4.main()
+for argv in (["create", os.path.join(d, "v4.kvlog"), os.path.join(d, "s")],
+             ["verify", os.path.join(d, "s")],
+             ["restore", os.path.join(d, "s"), os.path.join(d, "r.kvlog")]):
+    sys.argv = ["snapshot"] + argv + ["--kvbc-version", "v4"]
+    assert snapshot.main() == 0
+print("TORCH:" + str("torch" in sys.modules))
+"""
+
+
+def test_snapshot_and_migration_tools_start_without_torch():
+    """The snapshot CLI and migrate_v4 (open_db from storage/factory.py,
+    the ledger engines on the host) create, verify and restore a snapshot
+    and migrate a ledger in a process that never imports torch."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++: the engine is built from source at first use")
+    out = subprocess.run([sys.executable, "-c", _TOOLS_WITHOUT_TORCH],
+                         capture_output=True, text=True, cwd=ROOT,
+                         env=_env(), timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert '"digest_ok": true' in out.stdout, out.stdout
+    assert "TORCH:False" in out.stdout, out.stdout
+
+
+_WATCHDOG = r"""
+import subprocess, sys, time
+sys.path.insert(0, {root!r})
+import chip_smoke
+child = subprocess.Popen([sys.executable, "-c", "import time; time.sleep(120)"])
+print("CHILD:%d" % child.pid, flush=True)
+w = chip_smoke.Watchdog(ceilings={{"quick": 30.0, "nap": 0.3}},
+                        run_ceiling_s=60.0, poll_s=0.05).start()
+w.timed("quick", time.sleep, 0.05)
+w.timed("nap", time.sleep, 30)
+print("WENT ON", flush=True)
+"""
+
+
+def test_chip_smoke_watchdog_ends_the_run_at_a_phase_ceiling():
+    """chip_smoke.Watchdog: a phase that sleeps past its (tiny) ceiling
+    ends the run there: the error line names the phase, its seconds and
+    its ceiling, every thread's stack is dumped, the processes the run
+    started are killed, it exits 1 and never runs what follows."""
+    out = subprocess.run(
+        [sys.executable, "-c", _WATCHDOG.format(root=ROOT)],
+        capture_output=True, text=True, cwd=ROOT, env=_env(), timeout=120)
+    assert out.returncode == 1, (out.stdout, out.stderr)
+    assert "WENT ON" not in out.stdout
+    import json
+    err = [json.loads(line) for line in out.stdout.splitlines()
+           if line.startswith("{")]
+    assert len(err) == 1 and err[0]["phase"] == "nap" \
+        and err[0]["error"] == "over its ceiling", out.stdout
+    assert err[0]["ceiling_s"] == 0.3 and err[0]["elapsed_s"] > 0.3
+    assert "quick" in err[0]["phase_s"]
+    # the watchdog's own thread and the main thread, asleep in the phase
+    assert "Current thread 0x" in out.stderr and "Thread 0x" in out.stderr
+    assert "in timed" in out.stderr
+    assert "over its ceiling" in out.stderr
+    pid = int(next(line for line in out.stdout.splitlines()
+                   if line.startswith("CHILD:"))[6:])
+    deadline = time.monotonic() + 10
+    while os.path.exists(f"/proc/{pid}") and time.monotonic() < deadline:
+        with open(f"/proc/{pid}/stat") as f:
+            if f.read().rsplit(")", 1)[1].split()[0] == "Z":
+                break
+        time.sleep(0.05)
+    if os.path.exists(f"/proc/{pid}"):
+        with open(f"/proc/{pid}/stat") as f:
+            assert f.read().rsplit(")", 1)[1].split()[0] == "Z", pid

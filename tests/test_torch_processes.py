@@ -108,6 +108,140 @@ def _equal_last_executed(net, replicas, timeout=60.0):
     return net.wait_for(same, timeout=timeout)
 
 
+def _commit(kv, key, value, timeout_ms=8000, tries=6):
+    for _ in range(tries):
+        try:
+            if kv.write([(key, value)], timeout_ms=timeout_ms).success:
+                return True
+        except Exception:  # noqa: BLE001 — retried, as the reference's
+            pass
+    return False
+
+
+def test_thin_replica_stream_over_processes(tmp_path):
+    """The counterpart of tests/test_apollo_round4.py:237: a
+    ThinReplicaClient over the four replica processes' `--trs-port`
+    servers reads the state with a hash quorum, then subscribes and sees
+    the committed updates live, confirmed by f+1 servers."""
+    from tpubft_torch.thinreplica.client import ThinReplicaClient
+
+    net = BftTestNetwork(f=1, num_clients=2, seed="port-trs", device="cpu",
+                         db_dir=str(tmp_path))
+    try:
+        net.start_all(timeout=180)
+        kv = net.skvbc_client(0)
+        assert _commit(kv, b"t0", b"v0")
+        eps = [("127.0.0.1", net.trs_base + r) for r in range(net.n)]
+        trc = ThinReplicaClient(eps, f_val=1)
+        assert trc.read_state().get(b"t0") == b"v0"
+        got = []
+        evt = threading.Event()
+
+        def on_update(block_id, kvs):
+            got.extend(kvs)
+            if any(k == b"t2" for k, _ in kvs):
+                evt.set()
+
+        trc.subscribe(on_update, start_block=1)
+        try:
+            assert _commit(kv, b"t1", b"v1")
+            assert _commit(kv, b"t2", b"v2")
+            assert evt.wait(30), f"updates never streamed: {got}"
+            keys = {k for k, _ in got}
+            assert b"t1" in keys and b"t2" in keys
+        finally:
+            trc.stop()
+    finally:
+        net.stop_all()
+
+
+def test_thin_replica_check_of_the_card_phase_over_processes(tmp_path):
+    """chip_smoke.py's thin-replica check (`_TrsCheck`, which the card's
+    process_cluster phase runs) on four CPU replica processes with the
+    SKVBC state in its BLOCK_MERKLE category: replica 3 the client's
+    first data source; every acknowledged write streamed at its block,
+    no gap and no duplicate; replica 3 SIGKILLed, the client's
+    generation rises and delivery goes on through the writes after it,
+    with replica 3 restarted empty and caught up; an anchor at or past
+    the stable checkpoint under f+1 signed checkpoints, verified reads
+    equal to the acknowledged values, a historical read, an absent key;
+    pushed runs on every replica, the proofs counted, no overflow."""
+    thin_replica_check("cpu", str(tmp_path))
+
+
+def thin_replica_check(device: str, log_dir: str) -> dict:
+    """The body of the thin-replica process tests, on `device` ("cpu"
+    here, "cuda" in tests/test_torch_cuda.py): -> each replica's device
+    status, read before the network stops."""
+    import json
+    smoke = _chip_smoke()
+    net = BftTestNetwork(f=1, num_clients=3, seed="port-trs-check",
+                         device=device, checkpoint_window=5,
+                         work_window=10, merkle=True, log_dir=log_dir,
+                         device_min_verify_batch=1 if device == "cuda"
+                         else None)
+    trs = None
+    try:
+        net.start_all(timeout=180)
+        from tpubft_torch import testing
+        kvs = [net.skvbc_client(i) for i in range(3)]
+        writes = smoke._KvbcbenchWrites(kvs, testing.kvbcbench_rows(8),
+                                        timeout_ms=60000)
+        loop = smoke._ClosedLoop(3, writes)
+        trs = smoke._TrsCheck(net, writes, first=3)
+        trs.subscribe(os.path.join(log_dir, "stream.jsonl"))
+        assert loop.run(lambda n: n >= 24, budget_s=120)["committed"] >= 24
+        first = trs.streamed(kvs[0])
+        assert first["writes_checked"] >= 24 and first["generations"] == 0
+        generation = trs.generation
+        killed_at = time.monotonic()
+        net.kill_replica(3)
+        assert loop.run(lambda n: n >= 30, budget_s=120)["committed"] >= 30
+        assert trs.rotated(generation) > generation
+        net.start_replica(3)
+        net.wait_for_replicas_up(timeout=180, replicas=[3])
+        # a restarted replica catches up only while writes go on
+        deadline = time.monotonic() + 240
+        while not (net.metrics(3).get("state_transfer", "counters",
+                                      "blocks_fetched") or 0) \
+                or not net.last_executed(3):
+            assert time.monotonic() < deadline, "replica 3 never caught up"
+            loop.run(lambda n: n >= 6, budget_s=120)
+        assert not loop.errors, loop.errors
+        _equal_last_executed(net, range(4))
+        stream = trs.streamed(kvs[0], killed_at=killed_at)
+        assert stream["blocks_streamed"] == stream["head"]
+        assert stream["writes_checked"] == len(writes.log)
+        # the writes acknowledged between the kill and the next
+        # generation are the rotation's, apart from the steady lag
+        rotation = stream["rotation"]
+        assert rotation["kill_to_next_generation_ms"] > 0
+        assert stream["delivery_lag_ms"]["writes"] + rotation["writes"] \
+            == len(writes.log)
+        reads = trs.anchored_reads(server_replica=0, reads=5)
+        assert reads["wrong"] == 0 and reads["absent_is_none"]
+        assert reads["anchor_checkpoint"] >= reads["stable_checkpoint"]
+        per = trs.metrics(range(4))
+        assert all(m["trs_pushed_runs"] > 0 for m in per.values()), per
+        assert sum(m["trs_proofs"] for m in per.values()) >= 7, per
+        assert not any(m["trs_overflows"] for m in per.values()), per
+        return {r: json.loads(net.status(r, "device")) for r in range(4)}
+    finally:
+        if trs is not None:
+            trs.stop()
+        net.stop_all()
+
+
+def _chip_smoke():
+    """chip_smoke.py, imported from the checkout's root."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
 def test_simple_test_orchestrator_on_cpu():
     """python -m tpubft_torch.apps.simple_test --device cpu: four counter
     replica processes over UDP and a client, every reply checked."""
@@ -585,16 +719,44 @@ def test_skvbc_replica_takes_kvbc_version_v4_and_not_v1():
         p.parse_args(["--replica", "0", "--kvbc-version", "v1"])
 
 
+def test_skvbc_replica_takes_trs_port():
+    """--trs-port (the read tier, ported) parses, passes refuse_unported
+    and reaches the replica's thin-replica port."""
+    args = skvbc_replica.make_parser().parse_args(
+        ["--replica", "0", "--trs-port", "0"])
+    assert args.trs_port == 0
+    skvbc_replica.refuse_unported(args)
+
+
+# The ids are the ones these cases had while --trs-port was refused too
+# (as argv0): each refusal keeps its test's name.
 @pytest.mark.parametrize("argv, step", [
-    (["--trs-port", "0"], "A.9.4"),
-    (["--pre-execution"], "A.9.4"),
-    (["--prom-port", "0"], "A.9.5"),
-    (["--fault-port", "0"], "A.9.6"),
+    pytest.param(["--pre-execution"], "A.9.4", id="argv1-A.9.4"),
+    pytest.param(["--prom-port", "0"], "A.9.5", id="argv2-A.9.5"),
+    pytest.param(["--fault-port", "0"], "A.9.6", id="argv3-A.9.6"),
 ])
 def test_skvbc_replica_refuses_unported_options(argv, step):
     args = skvbc_replica.make_parser().parse_args(["--replica", "0"] + argv)
     with pytest.raises(NotImplementedError, match=re.escape(step)):
         skvbc_replica.refuse_unported(args)
+
+
+@pytest.mark.parametrize("argv, step", [
+    (["--pre-execution"], "A.9.4"),
+    (["--prom-port", "0"], "A.9.5"),
+    (["--fault-port", "0"], "A.9.6"),
+])
+def test_skvbc_replica_process_still_refuses_unported_options(argv, step):
+    """A replica process given an option of a plane not ported yet
+    (the read tier's --trs-port is ported) exits non-zero with
+    NotImplementedError naming the option's step, before it serves."""
+    out = _run_group([sys.executable, "-m", "tpubft_torch.apps.skvbc_replica",
+                      "--replica", "0", "--device", "cpu"] + argv,
+                     timeout=120)
+    assert out.returncode != 0
+    assert "NotImplementedError" in out.stderr and step in out.stderr, \
+        out.stderr[-2000:]
+    assert "up (" not in out.stdout
 
 
 @pytest.mark.parametrize("kw, step", [

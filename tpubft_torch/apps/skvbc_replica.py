@@ -19,8 +19,9 @@ Port divergences (reference skvbc_replica.py:27-193):
 - `--crypto-backend` takes cuda|cpu|auto and defaults to cuda (the
   reference's default is cpu).
 - The options of planes the port does not carry yet are refused with
-  the ROADMAP step that ports them: `--trs-port`, `--pre-execution`
-  (A.9.4), `--prom-port` (A.9.5) and `--fault-port` (A.9.6). `--db-dir`
+  the ROADMAP step that ports them: `--pre-execution` (A.9.4),
+  `--prom-port` (A.9.5) and `--fault-port` (A.9.6). `--trs-port` serves
+  the thin-replica read tier, as the reference does. `--db-dir`
   keeps the ledger and the consensus metadata in
   `DIR/replica-<id>.kvlog`, as the reference does; without it they
   live in memory.
@@ -52,7 +53,6 @@ def refuse_unported(args) -> None:
     """Port divergence: refuse, before anything is built, every option
     whose plane is not ported yet, naming its ROADMAP step."""
     for flag, on, step in (
-            ("--trs-port", args.trs_port is not None, "A.9.4"),
             ("--pre-execution", args.pre_execution, "A.9.4"),
             ("--prom-port", args.prom_port is not None, "A.9.5"),
             ("--fault-port", args.fault_port is not None, "A.9.6")):
@@ -116,7 +116,8 @@ def build_replica(args, comm_wrapper=None) -> KvbcReplica:
     db_path = (os.path.join(args.db_dir, f"replica-{args.replica}.kvlog")
                if args.db_dir else None)
     return KvbcReplica(cfg, keys, comm, db_path=db_path, aggregator=agg,
-                       handler_factory=handler_factory)
+                       handler_factory=handler_factory,
+                       thin_replica_port=args.trs_port)
 
 
 def device_status() -> str:
@@ -151,7 +152,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--base-port", type=int, default=3710)
     p.add_argument("--metrics-port", type=int, default=0)
     p.add_argument("--trs-port", type=int, default=None,
-                   help="thin-replica streaming port (not ported: A.9.4)")
+                   help="thin-replica streaming port (0 = ephemeral)")
     p.add_argument("--diag-port", type=int, default=None,
                    help="diagnostics admin server port (0 = ephemeral)")
     p.add_argument("--prom-port", type=int, default=None,
@@ -222,9 +223,11 @@ def main() -> None:
     if args.strategy:
         from tpubft_torch.testing.byzantine import strategy_wrapper
         comm_wrapper = strategy_wrapper(args.strategy)
-    kr = build_replica(args, comm_wrapper)
     metrics = diag = None
     try:
+        # the thin-replica server binds its port while the replica is
+        # built
+        kr = build_replica(args, comm_wrapper)
         metrics = UdpMetricsServer(kr.replica.aggregator,
                                    port=args.metrics_port)
         metrics.start()

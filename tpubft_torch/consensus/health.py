@@ -224,9 +224,12 @@ class HealthMonitor:
         # breaker rows. Gated on the module being live so offload-off
         # deployments pay nothing (pool construction registers a flight
         # dump provider; don't force that from a read path).
-        _off = sys.modules.get("tpubft_torch.offload.pool")
-        if _off is not None and _off._POOL is not None:
-            out["offload"] = _off._POOL.snapshot()
+        # (getattr: another thread may be importing the module, which
+        # has no _POOL until its import ends)
+        pool = getattr(sys.modules.get("tpubft_torch.offload.pool"),
+                       "_POOL", None)
+        if pool is not None:
+            out["offload"] = pool.snapshot()
         with self._mu:
             sections = list(self._info_sections.items())
         for name, fn in sections:

@@ -86,8 +86,6 @@ def _refuse_unported_planes(cfg: ReplicaConfig) -> None:
     named beside each check."""
     if cfg.pre_execution_enabled:           # reference replica.py:567
         _not_ported("pre_execution_enabled", "A.9")
-    if cfg.thin_replica_enabled:            # reference replica.py:585
-        _not_ported("thin_replica_enabled", "A.9")
 
 
 def share_digest(kind: str, epoch: int, view: int, seq_num: int,
@@ -625,8 +623,8 @@ class Replica(IReceiver):
         # state_digest -> ledger height at our own checkpoint boundaries
         # (bounded; resolves a certified digest to a servable block row)
         self._ckpt_blocks: Dict[bytes, int] = {}
-        # Port divergence (reference replica.py:585-586): the read tier
-        # is not ported; _refuse_unported_planes refused it above.
+        if cfg.thin_replica_enabled:
+            self.attach_thin_replica(port=cfg.thin_replica_port)
 
         # reserved pages + the subsystems riding them (internal client,
         # key exchange, time service, cron)
@@ -1113,9 +1111,17 @@ class Replica(IReceiver):
             log.warning("thin_replica_enabled but the handler has no "
                         "blockchain — read tier inactive")
             return None
-        # Port divergence (reference replica.py:1050-1059): the read
-        # tier's server is not ported.
-        _not_ported("attach_thin_replica", "A.9")
+        from tpubft_torch.thinreplica import ThinReplicaServer
+        self.thin_replica = ThinReplicaServer(
+            bc, host=host, port=port,
+            sub_buffer=self.cfg.thin_replica_sub_buffer,
+            aggregator=self.aggregator,
+            anchor_fn=self.thin_replica_anchor)
+        # __init__-time attach runs before _running exists; start()
+        # brings the server up then
+        if getattr(self, "_running", False):
+            self.thin_replica.start()
+        return self.thin_replica
 
     def thin_replica_anchor(self) -> Optional[tuple]:
         """(ckpt_seq, block_id, [packed CheckpointMsg...]) snapshot for

@@ -9,42 +9,23 @@ requests against the blockchain. The same inversion as the reference:
 this object sits *above* the consensus engine it creates while also
 implementing its execution upcall.
 
-The port diverges from the reference in three places, each marked where
-it sits: device hashing follows `crypto_backend == "cuda"`; no
-reconfiguration dispatcher is attached (A.9); and a thin-replica port
-is refused, as the port's Replica refuses the read tier (A.9).
+The port diverges from the reference in two places, each marked where
+it sits: device hashing follows `crypto_backend == "cuda"`, and no
+reconfiguration dispatcher is attached (A.9). A thin-replica port
+attaches the read tier's server as the reference does.
 """
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 from tpubft_torch.comm.interfaces import ICommunication
 from tpubft_torch.consensus.keys import ClusterKeys
-from tpubft_torch.consensus.replica import (IRequestsHandler, Replica,
-                                            _not_ported)
+from tpubft_torch.consensus.replica import IRequestsHandler, Replica
 from tpubft_torch.kvbc.blockchain import KeyValueBlockchain
-from tpubft_torch.storage.interfaces import IDBClient
-from tpubft_torch.storage.memorydb import MemoryDB
+from tpubft_torch.storage.factory import open_db
 from tpubft_torch.storage.metadata import DBPersistentStorage
 from tpubft_torch.utils.config import ReplicaConfig
 from tpubft_torch.utils.metrics import Aggregator
-
-
-def open_db(db_path: Optional[str],
-            sync_writes: bool = False,
-            sync_families=()) -> IDBClient:
-    """Storage factory (reference: kvbc storage factories — RocksDB for
-    production, memorydb for tests). `sync_writes` mirrors RocksDB
-    WriteOptions.sync (reference leaves it false); `sync_families` keeps
-    the named families fsync-durable regardless (the consensus-metadata
-    carve-out)."""
-    if db_path is None:
-        return MemoryDB()
-    from tpubft_torch.storage.native import NativeDB
-    os.makedirs(os.path.dirname(db_path) or ".", exist_ok=True)
-    return NativeDB(db_path, sync_writes=sync_writes,
-                    sync_families=sync_families)
 
 
 class KvbcReplica:
@@ -55,11 +36,6 @@ class KvbcReplica:
                  aggregator: Optional[Aggregator] = None,
                  use_device_hashing: Optional[bool] = None,
                  thin_replica_port: Optional[int] = None) -> None:
-        if thin_replica_port is not None:
-            # Port divergence (reference replica.py:85-89, 112-120): the
-            # read tier is not ported; refused before anything is built,
-            # as the port's Replica refuses attach_thin_replica
-            _not_ported("thin_replica_port", "A.9")
         from tpubft_torch.storage.metadata import CONSENSUS_META_FAMILIES
         self.db = open_db(
             db_path,
@@ -96,6 +72,11 @@ class KvbcReplica:
         # vice versa. Splitting pages into their own DB silently
         # downgrades that to two ordered batches.
         pages = ReservedPages(self.db)
+        if thin_replica_port is not None:
+            # the CLI port must win over cfg.thin_replica_port even
+            # when thin_replica_enabled makes the Replica constructor
+            # attach the server itself
+            cfg.thin_replica_port = thin_replica_port
         self.replica = Replica(cfg, keys, comm, self.handler,
                                storage=DBPersistentStorage(self.db),
                                aggregator=aggregator,
@@ -110,6 +91,16 @@ class KvbcReplica:
         # Port divergence (reference replica.py:105-110): no
         # reconfiguration dispatcher is attached (ROADMAP A.9); RECONFIG
         # requests execute to an empty reply, as in the port's cluster.
+
+        # thin-replica read tier: the consensus Replica owns the server
+        # (commit-stream feed + signed checkpoint anchor + metrics live
+        # there). The explicit port arg (process CLI --trs-port) wins:
+        # it is written into cfg BEFORE the Replica constructor runs
+        # (see above), so a thin_replica_enabled config attaches at the
+        # CLI port; without the knob, attach explicitly here.
+        if thin_replica_port is not None \
+                and self.replica.thin_replica is None:
+            self.replica.attach_thin_replica(port=thin_replica_port)
         self.thin_replica_server = self.replica.thin_replica
 
     def start(self) -> None:

@@ -36,8 +36,6 @@ import hashlib
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from tpubft_torch.device import NoDevice
-from tpubft_torch.ops import sha256 as _sha
 from tpubft_torch.storage.interfaces import IDBClient, WriteBatch
 from tpubft_torch.utils.logging import get_logger
 
@@ -65,6 +63,10 @@ _log = get_logger("smt")
 def _hash_level(messages: Sequence[bytes], use_device: bool) -> List[bytes]:
     global DEGRADED
     if use_device and len(messages) >= _DEVICE_THRESHOLD:
+        # imported here: the ledger's host-only users (the snapshot and
+        # migration tools) start without torch
+        from tpubft_torch.device import NoDevice
+        from tpubft_torch.ops import sha256 as _sha
         try:
             return _sha.sha256_batch(messages)
         except NoDevice:

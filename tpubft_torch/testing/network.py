@@ -21,9 +21,10 @@ Port divergences (reference network.py:70-491):
 - Without `base_port`, the base is drawn so that every UDP and TCP port
   the cluster uses binds free; a replica that still meets EADDRINUSE
   exits with that code, and `start_all` then retries once on a new base.
-- Replicas run without `--fault-port` and `--trs-port`; the per-link
-  faults (A.9.6) and `operator_client` (A.9.4) raise
-  NotImplementedError.
+- Replicas run without `--fault-port`; the per-link faults (A.9.6) and
+  `operator_client` (A.9.4) raise NotImplementedError. Every replica
+  serves the thin-replica read tier at `trs_base + r` (`--trs-port`),
+  as the reference's do.
 - `start_ro_replica` spawns `python -m tpubft_torch.apps.ro_replica`
   with the network's `--device`, `--diag-port` and TLS material; its
   output goes to `ro-<id>.log` in the log directory.
@@ -285,17 +286,19 @@ class BftTestNetwork:
     def _set_base(self, base: int) -> None:
         self.base_port = base
         self.metrics_base = base + 1000
+        self.trs_base = base + 3000   # thin-replica servers
         self.diag_base = base + 4000  # diagnostics admin servers
 
     def _ports(self, base: int) -> List[int]:
         """Every port the cluster binds at `base`: the replicas', the
-        clients' and the operator's endpoints, the metrics and the
-        diagnostics servers."""
+        clients' and the operator's endpoints, the metrics, the
+        thin-replica and the diagnostics servers."""
         op_id = self._operator_id()
         nodes = self.n + self.num_ro
         return (list(range(base, base + nodes + self.num_clients))
                 + [base + op_id]
                 + [base + 1000 + r for r in range(nodes)]
+                + [base + 3000 + r for r in range(self.n)]
                 + [base + 4000 + r for r in range(nodes)])
 
     def _free_base(self, tries: int = 200) -> int:
@@ -399,6 +402,7 @@ class BftTestNetwork:
                 "--seed", self.seed,
                 "--view-change-timeout-ms",
                 str(self.view_change_timeout_ms),
+                "--trs-port", str(self.trs_base + r),
                 "--diag-port", str(self.diag_base + r),
                 "--crypto-backend", self.crypto_backend,
                 "--device", self.device,

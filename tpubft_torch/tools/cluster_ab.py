@@ -4,14 +4,16 @@ count, on one card.
 
     python3 tpubft_torch/tools/cluster_ab.py --tree DIR
         --phase process_cluster|persistent_cluster|tls_cluster
-        [--clients N]
+        [--clients N] [--no-thin-replica]
 
 Imports DIR's chip_smoke.py (DIR: a checkout of the repo, whose
 tpubft_torch is the one imported and the one its replica processes run)
 and runs the phase with `--clients` closed-loop clients (default: the
 phase's own); the phase builds the libraries it loads. process_cluster
 is given no in-process phase to stand beside (its beside_in_process
-numbers are null). The phase's own lines go to standard error. Prints
+numbers are null); `--no-thin-replica` runs it without the read tier's
+follower and proof network, to see what they cost its load. The phase's
+own lines go to standard error. Prints
 one JSON line: the tree, the phase, the clients, its first load's
 requests/s, commit latency p50 / p99 and committed writes, the phase's
 wall seconds, and the card's name and power limit as nvidia-smi gives
@@ -50,6 +52,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", required=True)
     ap.add_argument("--phase", required=True, choices=PHASES)
     ap.add_argument("--clients", type=int)
+    ap.add_argument("--no-thin-replica", action="store_true",
+                    help="process_cluster without its thin-replica check")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -64,6 +68,8 @@ def main(argv=None) -> int:
     kw = {} if args.clients is None else {"clients": args.clients}
     if args.phase == "process_cluster":
         kw["ledger_replica"] = NO_IN_PROCESS
+    if args.no_thin_replica:
+        kw["thin_replica"] = False
     clients = kw.get("clients",
                      inspect.signature(fn).parameters["clients"].default)
     with contextlib.redirect_stdout(sys.stderr):
@@ -71,6 +77,7 @@ def main(argv=None) -> int:
     load = out["load"]
     print(json.dumps({
         "tree": tree, "phase": args.phase, "clients": clients,
+        "thin_replica": not args.no_thin_replica,
         "requests_per_s": load["requests_per_s"],
         "committed": load["committed"],
         "p50_ms": load["commit_latency_ms"]["p50"],

@@ -83,7 +83,7 @@ def main() -> int:
                     default=True,
                     help="skip the full second read-and-compare pass")
     args = ap.parse_args()
-    from tpubft_torch.kvbc.replica import open_db
+    from tpubft_torch.storage.factory import open_db
     # offline tool: full per-batch durability on the destination (the
     # replica's unsynced default is a latency tradeoff this tool
     # doesn't need)

@@ -31,7 +31,7 @@ def main() -> int:
     args = ap.parse_args()
 
     from tpubft_torch.kvbc import create_blockchain
-    from tpubft_torch.kvbc.replica import open_db
+    from tpubft_torch.storage.factory import open_db
     from tpubft_torch.kvbc.snapshots import (SnapshotError, create_snapshot,
                                        read_manifest, restore_snapshot)
 
