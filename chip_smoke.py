@@ -304,8 +304,10 @@ line each; any failure exits non-zero:
            (every 5th forged), sha256_batch 256 and sha256_batch_mixed
            256 of mixed sizes, config 4's 1000-point msm, msm_batch at
            S=64 K=16 and rlc_verify_batch of 128 secp256k1 and 128 P-256
-           items (3% forged), each against the one-slot route, the host
-           engines and the plain versions on the card, with launches a
+           items (3% forged), each against the one-slot route and the
+           host engines, the verify and digest routes against their
+           plain versions on the card, the MSM kernel against its plain
+           version on slot 0's shard of each MSM route, with launches a
            kernel (one a slot), the bls_msm_combine launches, the
            `.shard` profile rows and each route's ms on the 4 slots of
            ONE card (no multi-card time) beside the one-slot route's;
@@ -1286,13 +1288,17 @@ class _KvbcbenchWrites:
         self.next_write = [0] * len(skvbc_clients)
         # a list to append (block, writeset, acknowledged at) to, or None
         self.log = None
+        # send the writes flagged PRE_PROCESS (the replicas pre-execute
+        # them where pre-execution is on)
+        self.pre_process = False
 
     def __call__(self, idx: int) -> None:
         j = self.next_write[idx]
         prefix = b"c%03d/" % idx
         ws = [(prefix + key, value + b"/w%d" % j)
               for _cat, key, value, _t in self.rows[j % len(self.rows)]]
-        reply = self.clients[idx].write(ws, timeout_ms=self.timeout_ms)
+        reply = self.clients[idx].write(ws, timeout_ms=self.timeout_ms,
+                                        pre_process=self.pre_process)
         if not reply.success:
             raise AssertionError(f"write rejected: {reply}")
         self.next_write[idx] += 1
@@ -2982,9 +2988,110 @@ def _ro_audit(audit, db_path: str, key: bytes, value, last_block: int,
                 value == want}
 
 
+def _preexec_counts(net, replicas) -> dict:
+    """Each replica's pre-execution counters (its `preexec` metrics
+    component), its SigManager's verifies dispatched to the device and
+    verified on the host, and its verify kernel's launches, read over its
+    metrics and diagnostics servers."""
+    out = {}
+    for r in replicas:
+        snap = net.metrics(r).snapshot(timeout=5.0) or {}
+        comps = snap.get("components", {})
+        pre = comps.get("preexec", {}).get("counters", {})
+        sig = comps.get("signature_manager", {}).get("counters", {})
+        launches = json.loads(net.status(r, "device") or "{}").get(
+            "launches", {})
+        out[r] = {**{k: pre.get("preexec_" + k, 0) for k in (
+                      "sessions", "agreed", "fallbacks", "conflicts",
+                      "applied")},
+                  "device_verifies": sig.get("sigs_device_dispatched", 0),
+                  "host_verifies": sig.get("scalar_fallbacks", 0),
+                  "verify_launches": launches.get("ed25519_verify", 0)}
+    return out
+
+
+def _preexec_step(cl, writes_n: int, reads: int, seed: int,
+                  budget_s: float) -> dict:
+    """Pre-execution on `cl`'s replica processes (started with
+    --pre-execution). The closed-loop clients write `writes_n` kvbcbench
+    writes flagged PRE_PROCESS (each executed speculatively by the
+    replicas, f+1 signed result digests collected by the primary, the
+    wrapper ordered and applied at commit); `reads` of their keys, chosen
+    by `seed`, read back. Then client 0's conflict triple on a fresh key
+    (tests/test_apollo_extended.py:131-146), all three pre-executed: a
+    write, a conditional write at its block (succeeds), a stale one at
+    the same block (fails: a conflict at commit, ordered normally in its
+    slot), and the read returns the second's value. The four
+    last_executed agree. Checked on the counters' growth over the step,
+    read from every process just before and just after it: sessions and
+    agreements (summed: the primary holds them) at least the writes
+    sent, none expired (sessions = agreed + fallbacks), one conflict in
+    each replica; the verify launches (`total["verify_launches"]`, which
+    the caller holds above 0 on the card) and the SigManagers' device
+    and host verifies beside them. -> the step's numbers, with
+    `blocks_beside_loop`, the blocks the triple added, and the agreed
+    `last_executed`. A load that fails raises; the rest are problems."""
+    net, writes, problems = cl.net, cl.writes, cl.problems
+    before = _preexec_counts(net, range(net.n))
+    writes.pre_process, writes.log = True, []
+    try:
+        load = cl.loop.run(lambda n: n >= writes_n, budget_s=budget_s)
+    finally:
+        writes.pre_process = False
+        logged, writes.log = writes.log, None
+    if cl.loop.errors or load["committed"] < writes_n:
+        raise AssertionError(f"pre-executed load: {load['committed']} of "
+                             f"{writes_n} writes, {cl.loop.errors[:3]}")
+    import numpy as np
+    keys = sorted({k for _b, ws, _t in logged for k, _v in ws})
+    rng = np.random.default_rng(seed)
+    sample = [keys[i] for i in rng.choice(len(keys), size=min(
+        reads, len(keys)), replace=False)]
+    wrong = cl.read_back(sample)
+    kv, key = cl.kvs[0], b"preexec/acct"
+    triple = [kv.write([(key, b"100")], pre_process=True,
+                       timeout_ms=30000)]
+    v1 = triple[0].latest_block
+    for value in (b"90", b"80"):
+        triple.append(kv.write([(key, value)], readset=[key],
+                               read_version=v1, pre_process=True,
+                               timeout_ms=30000))
+    read = kv.read([key], timeout_ms=30000)
+    le = _equal_last_executed(net, range(net.n), timeout=30)
+    after = _preexec_counts(net, range(net.n))
+    grew = {r: {k: after[r][k] - before[r][k] for k in after[r]}
+            for r in after}
+    total = {k: sum(g[k] for g in grew.values()) for k in grew[0]}
+    sent = len(logged) + len(triple)
+    out = {"writes_sent": sent, "load": load,
+           "read_back": {"keys": len(sample), "wrong": len(wrong)},
+           "triple": [t.success for t in triple],
+           "triple_read": {k.decode(): v.decode() for k, v in read.items()},
+           "grew": grew, "total": total,
+           "expired": (total["sessions"] - total["agreed"]
+                       - total["fallbacks"]),
+           "blocks_beside_loop": sum(t.success for t in triple),
+           "last_executed": le}
+    if len(sample) < min(reads, len(keys)) or wrong:
+        problems.append(f"pre-executed read-back: {len(wrong)} of "
+                        f"{len(sample)} keys wrong")
+    if out["triple"] != [True, True, False] or read != {key: b"90"}:
+        problems.append(f"conflict triple: {out['triple']}, read {read}")
+    if total["sessions"] < sent or total["agreed"] < sent:
+        problems.append(f"pre-execution: {total['sessions']} sessions, "
+                        f"{total['agreed']} agreed for {sent} writes")
+    if out["expired"]:
+        problems.append(f"{out['expired']} pre-execution sessions expired")
+    if any(g["conflicts"] != 1 for g in grew.values()):
+        problems.append("pre-execution conflicts: "
+                        f"{[g['conflicts'] for g in grew.values()]}")
+    return out
+
+
 def phase_persistent_cluster(torch, dev, process_cluster=None,
                              clients: int = 16, target: int = 600,
                              reads: int = 120, more: int = 200,
+                             preexec_writes: int = 320,
                              device_min_verify_batch: int = 4,
                              checkpoint_window: int = 150,
                              work_window: int = 300, min_anchor: int = 300,
@@ -2997,8 +3104,10 @@ def phase_persistent_cluster(torch, dev, process_cluster=None,
     NativeDB over native/kvlog.cpp) in a temporary directory, every
     setting at ReplicaConfig()'s defaults (db_sync_writes off, the
     consensus-metadata families fsynced) but `device_min_verify_batch`
-    4, as process_cluster and for its reason. `clients` closed-loop
-    SkvbcClients in this process write kvbcbench blocks. Beside them one
+    4, as process_cluster and for its reason, and pre-execution on
+    (`--pre-execution`, as tests/test_apollo_extended.py:124-146 runs
+    it). `clients` closed-loop SkvbcClients in this process write
+    kvbcbench blocks. Beside them one
     `python -m tpubft_torch.apps.ro_replica --device cuda` process (id
     4, BftTestNetwork.start_ro_replica) archives over SigV4 to the
     port's testing.S3TestServer, started in this process (the secret in
@@ -3007,7 +3116,18 @@ def phase_persistent_cluster(torch, dev, process_cluster=None,
     1. Where the files live: the DB directory's filesystem type
        (/proc/mounts) and the ms of 4 KiB write + fsync probes there.
     2. Load until `target` writes commit; `reads` acknowledged keys
-       chosen by the seed read back; the four last_executed agree.
+       chosen by the seed read back; the four last_executed agree. These
+       writes are not flagged PRE_PROCESS: the preprocessor never sees
+       them.
+    2b. Pre-execution (`_preexec_step`): `preexec_writes` writes flagged
+       PRE_PROCESS from the same clients, every one acknowledged, a
+       seeded sample read back; client 0's conflict triple (success,
+       success, failure; the read gives the second's value); sessions
+       and agreements summed over the four processes at least the
+       writes sent, none expired, one conflict in each replica, and the
+       verify kernel launched during the step (its launches and the
+       SigManagers' host verifies printed; the rate and latency printed
+       beside the first load's).
     3. Replica 3 is SIGKILLed; the load goes on until the others'
        stable checkpoint is more than the work window past replica 3's
        last_executed (and at `min_anchor` or past it).
@@ -3040,6 +3160,7 @@ def phase_persistent_cluster(torch, dev, process_cluster=None,
     7. After stop_all this process opens each kvlog file with the port's
        NativeDB under the port's blockchain (testing.network.
        ledger_files): every ledger holds exactly the acknowledged writes
+       (the pre-executed ones and the triple's two successes among them)
        and blocks 1..min(last block id) are equal raw bytes in the four
        files. An independent S3ObjectStore lists the archive: every
        object equals replica 0's raw block and digest (0 failures).
@@ -3092,7 +3213,8 @@ def phase_persistent_cluster(torch, dev, process_cluster=None,
                              db_dir=db_dir, log_dir=log_dir,
                              checkpoint_window=checkpoint_window,
                              work_window=work_window,
-                             device_min_verify_batch=device_min_verify_batch)
+                             device_min_verify_batch=device_min_verify_batch,
+                             pre_execution=True)
         cl = _ProcessCluster("persistent_cluster", net, clients, out)
         problems, earlier = cl.problems, []
         steps = out["steps_s"] = {}
@@ -3108,10 +3230,25 @@ def phase_persistent_cluster(torch, dev, process_cluster=None,
 
             # ---- 2. load, read-back ----
             t0 = time.monotonic()
-            le = cl.load(target, reads, seed=13, budget_s=budget_s * 0.15)
+            cl.load(target, reads, seed=13, budget_s=budget_s * 0.15)
             steps["load"] = time.monotonic() - t0
             writes = cl.writes
-            blocks_at_kill = sum(writes.next_write)
+
+            # ---- 2b. pre-execution ----
+            t0 = time.monotonic()
+            pre = out["preexec"] = _preexec_step(
+                cl, preexec_writes, reads, seed=17, budget_s=budget_s * 0.2)
+            steps["preexec"] = time.monotonic() - t0
+            pre["first_load"] = {k: out["load"][k] for k in (
+                "requests_per_s", "commit_latency_ms")}
+            emit({"phase": "persistent_cluster", "step": "preexec", **pre})
+            if pre["total"]["verify_launches"] < 1:
+                problems.append("no verify launch during the pre-executed "
+                                "load")
+            # the blocks of writes made apart from the closed loop
+            blocks_beside = pre["blocks_beside_loop"]
+            le = pre["last_executed"]
+            blocks_at_kill = sum(writes.next_write) + blocks_beside
             earlier.append(_replica_report(net, 3))   # its counts die with it
 
             # ---- 3. replica 3 crashes ----
@@ -3163,7 +3300,7 @@ def phase_persistent_cluster(torch, dev, process_cluster=None,
                                         budget_s=budget_s * 0.3)
             steps["restart_one"] = one["catch_up_s"]
             rep3 = _replica_report(net, 3)
-            height = sum(writes.next_write)
+            height = sum(writes.next_write) + blocks_beside
             fetched = rep3["blocks_fetched"] or 0
             # writes per sequence number so far: one checkpoint window's
             # blocks
@@ -3252,7 +3389,7 @@ def phase_persistent_cluster(torch, dev, process_cluster=None,
         # ---- 7. the files and the archive ----
         files = ledger_files(db_dir, range(4))
         out["files"] = files
-        acked = sum(writes.next_write)
+        acked = sum(writes.next_write) + blocks_beside
         if set(files["last_block_id"].values()) != {acked}:
             problems.append(f"ledgers hold {files['last_block_id']} "
                             f"blocks, {acked} writes were acknowledged")
@@ -4827,9 +4964,11 @@ def phase_mesh(torch, dev, sm_clock_mhz: float,
     past its gate (verify 256, every 5th forged; sha256_batch 256 and
     sha256_batch_mixed 256 of mixed sizes; msm of config 4's 1000
     points; msm_batch S=64 K=16; rlc_verify_batch of 128 secp256k1 and
-    128 P-256 items, 3% forged) against the one-slot route, the host
-    engines (scalar, hashlib, the native BLS engine) and the plain
-    versions on the card; launches per kernel (one a slot), the
+    128 P-256 items, 3% forged) against the one-slot route and the host
+    engines (scalar, hashlib, the native BLS engine), the verify and
+    SHA-256 routes against their plain versions on the card too, and the
+    MSM kernel against its plain version on slot 0's shard of each MSM
+    route (one plain call over both); launches per kernel (one a slot), the
     bls_msm_combine launches and the `.shard` profile rows; each route's
     ms on 4 slots of ONE card (they share its SMs: no multi-card time)
     beside the one-slot route's; bls_msm_combine against its plain
@@ -4963,12 +5102,6 @@ def phase_mesh(torch, dev, sm_clock_mhz: float,
             cols = [c.cpu().numpy() for c in xyz]
             return [bops._to_affine_host(*(c[:, j] for c in cols))
                     for j in range(cols[0].shape[1])]
-        t0 = time.perf_counter()
-        plain_msm = affine(bops.plain_msm_batch_kernel(*bops.to_tensors(
-            bops.prepare_msm_batch([inp["msm"]]), dev)))[0]
-        plain_msm_ms = (time.perf_counter() - t0) * 1e3
-        plain_batch = affine(bops.plain_msm_batch_kernel(*bops.to_tensors(
-            bops.prepare_msm_batch(inp["segments"]), dev)))
         # each curve's first shard folded by the kernel and by its plain
         # version, word for word
         from tpubft_torch.ops import ecdsa_cuda as ec
@@ -4986,19 +5119,24 @@ def phase_mesh(torch, dev, sm_clock_mhz: float,
             == plain_sha["merkle"],
             "sha256_mixed": four["sha256_mixed"] == one_slot["sha256_mixed"]
             == host["sha256_mixed"] == plain_sha["mixed"],
-            "msm": four["msm"] == one_slot["msm"] == host["msm"] == plain_msm,
+            "msm": four["msm"] == one_slot["msm"] == host["msm"],
             "msm_batch": four["msm_batch"] == one_slot["msm_batch"]
-            == host["msm_batch"] == plain_batch,
+            == host["msm_batch"],
             **{k: four[k] == one_slot[k] == host[k]
                for k in four if k.startswith("rlc_")},
             "rlc_fold_vs_plain": not any(rlc_fold_err.values())}
         # the combine kernel at the two MSM routes' shapes: the slots'
         # partials of config 4's MSM (S=1, D=4) and of the S=64 flush
         combine_rows = []
+        # slot 0's shard of each MSM route, its kernel's partials, for
+        # one plain call over both below
+        slot0_segs, slot0_kernel = [], []
         for label, segs in (("S=64 D=4", inp["segments"]),
                             ("S=1 D=4", [inp["msm"]])):
             kw = max(len(p) for p, _ in segs)
             kmax = sharding.shard_rows(kw, slots) * slots
+            rows = kmax // slots
+            slot0_segs += [(list(p)[:rows], list(k)[:rows]) for p, k in segs]
             hostw = bops.prepare_msm_batch(
                 [(list(p) + [None] * (kmax - len(p)),
                   list(k) + [0] * (kmax - len(p))) for p, k in segs])
@@ -5006,6 +5144,7 @@ def phase_mesh(torch, dev, sm_clock_mhz: float,
                     for j in range(slots) for a in hostw]
             parts = [bc.msm(*bops.to_tensors(cols[4 * j:4 * j + 4], dev))
                      for j in range(slots)]
+            slot0_kernel += affine(parts[0])
             x, y, z = (torch.stack([p[c] for p in parts], -1).contiguous()
                        for c in range(3))
             got = affine(bc.combine(x, y, z))
@@ -5022,6 +5161,15 @@ def phase_mesh(torch, dev, sm_clock_mhz: float,
                 "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
                 "bound_by": bound["bound_by"], "ops": bound["ops"],
                 "bytes": bound["bytes"]})
+        # the MSM kernel against its plain version at the mesh routes'
+        # shapes: slot 0's shard of each (64 segments of 4 points, one of
+        # 256) in one plain call, the narrower lanes padded with the
+        # identity (the plain ladder's time hardly grows with its lanes)
+        t0 = time.perf_counter()
+        slot0_plain = affine(bops.plain_msm_batch_kernel(*bops.to_tensors(
+            bops.prepare_msm_batch(slot0_segs), dev)))
+        plain_slot0_ms = (time.perf_counter() - t0) * 1e3
+        checks["msm_slot0_vs_plain"] = slot0_kernel == slot0_plain
         mesh_ms = {k: _route_ms(torch, f)
                    for k, f in _mesh_route_calls(inp).items()}
         out["routes"] = {
@@ -5029,7 +5177,8 @@ def phase_mesh(torch, dev, sm_clock_mhz: float,
             "plan_slots": plan.n, "launches": launches,
             "shard_profile": shard_rows, "checks": checks,
             "rlc_fold_max_abs_err": rlc_fold_err,
-            "plain_msm_1000_ms": plain_msm_ms,
+            "msm_slot0_segments": len(slot0_segs),
+            "plain_msm_slot0_ms": plain_slot0_ms,
             "route_ms_mesh": mesh_ms,
             "route_ms_one_slot": one_ms, "combine": combine_rows}
         emit({"phase": "mesh", "step": "routes", **out["routes"]})

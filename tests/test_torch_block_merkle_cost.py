@@ -4,10 +4,11 @@ reference (ROADMAP C.12).
 `skvbc_replica --merkle` keeps every key of a write in the BLOCK_MERKLE
 category "kv", which the thin-replica read tier's proofs need. A block
 of kvbcbench's nine keys then writes a node row for each level of each
-key's path in the sparse Merkle tree, and MemoryDB keeps its keys in one
-sorted list (`bisect.insort`, `tpubft_torch/storage/memorydb.py:36`,
-reference `tpubft/storage/memorydb.py:35`), so each new row moves the
-rows after it and a block's cost grows with the ledger.
+key's path in the sparse Merkle tree. The reference's MemoryDB keeps its
+keys in one sorted list (`bisect.insort`, `tpubft/storage/memorydb.py:35`),
+so each new row moves the rows after it and a block's cost grows with
+the ledger; the port's keeps sorted chunks of keys
+(`tpubft_torch/storage/memorydb.py`), so a row moves one chunk's rows.
 
 As tests: such blocks leave the same rows in both packages' MemoryDB,
 and each key adds at least a hundred node rows a block.
@@ -21,7 +22,7 @@ As a script, each package's `add_block` timed as the ledger grows:
 prints one JSON line a package: at each count in `--at`, the mean ms of
 the ten blocks up to it and the rows the DB holds there; with
 `--profile`, also the seconds of the run under cProfile and those spent
-in `bisect.insort`.
+in `bisect.insort` (the reference's one list, the port's chunks).
 """
 from __future__ import annotations
 
@@ -95,7 +96,7 @@ def time_package(package: str, blocks: int, at, keys: int) -> dict:
         ms.append((time.perf_counter() - t) * 1e3)
         if b in at:
             out[b] = {"ms_a_block": sum(ms[-10:]) / len(ms[-10:]),
-                      "rows": len(db._keys)}
+                      "rows": len(db._map)}
     return {"package": package, "keys_a_block": keys, "at": out}
 
 

@@ -812,10 +812,17 @@ def test_persistent_cluster_on_the_card(card):
     kernel launched and nothing degraded; beside them an ro_replica
     process on the card digests its fetched windows with the SHA-256
     kernel, archives over SigV4 an archive equal to replica 0's file,
-    and answers a signed read (not a forged one)."""
+    and answers a signed read (not a forged one). With pre-execution on:
+    40 pre-executed writes and the conflict triple before replica 3's
+    SIGKILL, the verify kernel launched during that step."""
     out = _chip_smoke().phase_persistent_cluster(
         torch, card, clients=8, target=120, reads=40, more=40,
-        checkpoint_window=10, work_window=20, min_anchor=20, budget_s=300)
+        preexec_writes=40, checkpoint_window=10, work_window=20,
+        min_anchor=20, budget_s=300)
+    pre = out["preexec"]
+    assert pre["triple"] == [True, True, False] and pre["expired"] == 0
+    assert pre["total"]["agreed"] >= pre["writes_sent"] >= 43
+    assert pre["total"]["verify_launches"] > 0
     assert out["restart_one"]["first_read_last_executed"] == \
         out["restart_one"]["last_executed_before_kill"] > 0
     assert out["verify_launches"] > 0 and out["sha256_launches"] > 0

@@ -3,9 +3,10 @@ among it) and chip_smoke.py import nothing of JAX, of the reference
 package or of `cryptography` (the machine with the card has none; the
 TLS material is written by comm/_der.py), the native libraries the port
 loads (netio, the BLS engine, kvlog) are its own builds in ops/_build/,
-the ledger engines, their tools and the read-only replica run alone
-(which without a card exits with NoDevice), and chip_smoke.py refuses to
-run without a card or without the port beside it."""
+the ledger engines, their tools, the read tier, pre-execution and the
+read-only replica run alone (which without a card exits with NoDevice),
+and chip_smoke.py refuses to run without a card or without the port
+beside it."""
 import ast
 import os
 import shutil
@@ -39,7 +40,8 @@ resp = srv.handle(protocol.encode_request(
     1, protocol.KIND_BLS_SUM, 100, protocol.encode_bls_segments([])))
 assert protocol.decode_response(resp)[:2] == (1, protocol.ST_OK), resp
 for mod in ("tpubft_torch.tuning.wiring", "tpubft_torch.tuning.controller",
-            "tpubft_torch.offload.pool", "tpubft_torch.offload.soundness"):
+            "tpubft_torch.offload.pool", "tpubft_torch.offload.soundness",
+            "tpubft_torch.preprocessor.preprocessor"):
     assert mod in sys.modules, mod
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "tpubft", "cryptography"))
@@ -328,6 +330,49 @@ def test_thin_replica_modules_import_nothing_of_the_reference():
     or of `cryptography`: an anchored verified read, an absent key and a
     subscription over a port ledger."""
     out = subprocess.run([sys.executable, "-c", _THIN_REPLICA_ALONE],
+                         capture_output=True, text=True, cwd=ROOT,
+                         env=_env(), timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED:\n" in out.stdout + "\n", out.stdout
+
+
+_PREEXECUTION_ALONE = r"""
+import sys
+import tpubft_torch.preprocessor
+from tpubft_torch import device
+device.set_default_device("cpu")
+from tpubft_torch.apps.skvbc import SkvbcClient, SkvbcHandler
+from tpubft_torch.kvbc import KeyValueBlockchain
+from tpubft_torch.storage import MemoryDB
+from tpubft_torch.testing import InProcessCluster
+def hf(_r=None):
+    return SkvbcHandler(KeyValueBlockchain(MemoryDB(),
+                                           use_device_hashing=False))
+with InProcessCluster(f=1, num_clients=1, handler_factory=hf,
+                      cfg_overrides=dict(pre_execution_enabled=True,
+                                         crypto_backend="cpu",
+                                         autotune_enabled=False)) as cl:
+    kv = SkvbcClient(cl.client(0))
+    w = kv.write([(b"a", b"1")], pre_process=True, timeout_ms=30000)
+    w2 = kv.write([(b"a", b"2")], readset=[b"a"], read_version=1,
+                  pre_process=True, timeout_ms=30000)
+    w3 = kv.write([(b"a", b"3")], readset=[b"a"], read_version=1,
+                  pre_process=True, timeout_ms=30000)
+    assert [w.success, w2.success, w3.success] == [True, True, False]
+    assert kv.read([b"a"]) == {b"a": b"2"}
+    assert cl.replicas[0].preprocessor.m_agreed.value == 3
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "tpubft", "cryptography"))
+print("LEAKED:" + ",".join(bad))
+"""
+
+
+def test_preexecution_modules_import_nothing_of_the_reference():
+    """preprocessor/ (the package and preprocessor.py) pre-executes in a
+    process that imports nothing of JAX, of the reference or of
+    `cryptography`: the conflict triple on a port cluster with
+    pre-execution on."""
+    out = subprocess.run([sys.executable, "-c", _PREEXECUTION_ALONE],
                          capture_output=True, text=True, cwd=ROOT,
                          env=_env(), timeout=300)
     assert out.returncode == 0, out.stderr

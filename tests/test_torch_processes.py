@@ -692,16 +692,18 @@ def test_replica_without_a_card_exits_with_no_device(module):
 
 
 @pytest.mark.parametrize("phase", ["process_cluster", "persistent_cluster",
-                                   "tls_cluster"])
+                                   "tls_cluster", "merkle"])
 def test_cluster_ab_without_a_card_exits_with_no_result(phase):
-    """tools/cluster_ab.py runs a checkout's cluster phase on the card
+    """tools/cluster_ab.py runs a checkout's cluster phase (or, with
+    --merkle, process_cluster's first load in BLOCK_MERKLE) on the card
     only: without one it exits 2 and prints no result line."""
     if torch.cuda.is_available():
         pytest.skip("a card is present")
+    what = ["--merkle"] if phase == "merkle" else ["--phase", phase]
     out = subprocess.run(
         [sys.executable, os.path.join(ROOT, "tpubft_torch", "tools",
                                       "cluster_ab.py"),
-         "--tree", ROOT, "--phase", phase, "--clients", "4"],
+         "--tree", ROOT, *what, "--clients", "4"],
         capture_output=True, text=True, timeout=120)
     assert out.returncode == 2
     assert out.stdout == ""
@@ -729,27 +731,37 @@ def test_skvbc_replica_takes_trs_port():
 
 
 # The ids are the ones these cases had while --trs-port was refused too
-# (as argv0): each refusal keeps its test's name.
+# (as argv0): each case keeps its test's name. --pre-execution (A.9.4b)
+# is ported: its case, a step of None, shows the option taken.
 @pytest.mark.parametrize("argv, step", [
-    pytest.param(["--pre-execution"], "A.9.4", id="argv1-A.9.4"),
+    pytest.param(["--pre-execution"], None, id="argv1-A.9.4"),
     pytest.param(["--prom-port", "0"], "A.9.5", id="argv2-A.9.5"),
     pytest.param(["--fault-port", "0"], "A.9.6", id="argv3-A.9.6"),
 ])
 def test_skvbc_replica_refuses_unported_options(argv, step):
     args = skvbc_replica.make_parser().parse_args(["--replica", "0"] + argv)
+    if step is None:
+        skvbc_replica.refuse_unported(args)
+        assert args.pre_execution
+        return
     with pytest.raises(NotImplementedError, match=re.escape(step)):
         skvbc_replica.refuse_unported(args)
 
 
 @pytest.mark.parametrize("argv, step", [
-    (["--pre-execution"], "A.9.4"),
+    pytest.param(["--pre-execution"], None, id="argv0-A.9.4"),
     (["--prom-port", "0"], "A.9.5"),
     (["--fault-port", "0"], "A.9.6"),
 ])
 def test_skvbc_replica_process_still_refuses_unported_options(argv, step):
     """A replica process given an option of a plane not ported yet
     (the read tier's --trs-port is ported) exits non-zero with
-    NotImplementedError naming the option's step, before it serves."""
+    NotImplementedError naming the option's step, before it serves. With
+    --pre-execution (ported) it comes up with its preprocessor built:
+    its metrics carry the preprocessor's counters."""
+    if step is None:
+        preexecution_replica_comes_up(argv)
+        return
     out = _run_group([sys.executable, "-m", "tpubft_torch.apps.skvbc_replica",
                       "--replica", "0", "--device", "cpu"] + argv,
                      timeout=120)
@@ -759,12 +771,44 @@ def test_skvbc_replica_process_still_refuses_unported_options(argv, step):
     assert "up (" not in out.stdout
 
 
-@pytest.mark.parametrize("kw, step", [
-    (dict(pre_execution=True), "A.9.4"),
+def preexecution_replica_comes_up(argv) -> None:
+    """One replica process with `argv` on this CPU: it answers its
+    metrics, and they hold the preprocessor's `preexec_sessions`; then it
+    is killed."""
+    base = _free_base(lambda b: [b + i for i in range(8)] + [b + 1000])
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpubft_torch.apps.skvbc_replica",
+         "--replica", "0", "--device", "cpu", "--crypto-backend", "cpu",
+         "--base-port", str(base), "--metrics-port", str(base + 1000)]
+        + argv, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True, cwd=ROOT, env=_env(), start_new_session=True)
+    try:
+        deadline = time.monotonic() + 120
+        snap = None
+        while snap is None:
+            assert proc.poll() is None, proc.stderr.read()[-2000:]
+            assert time.monotonic() < deadline, "the replica never answered"
+            snap = network.MetricsClient(base + 1000).snapshot(timeout=0.5)
+        counters = snap["components"]["preexec"]["counters"]
+        assert counters["preexec_sessions"] == 0
+    finally:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+@pytest.mark.parametrize("kw", [
+    pytest.param(dict(pre_execution=True), id="kw0-A.9.4"),
 ])
-def test_network_refuses_unported_options(kw, step):
-    with pytest.raises(NotImplementedError, match=re.escape(step)):
-        BftTestNetwork(device="cpu", **kw)
+def test_network_refuses_unported_options(kw):
+    """BftTestNetwork's options (the name and id kept from when
+    pre-execution was refused; no option is refused now):
+    `pre_execution=True` puts --pre-execution on every replica's command
+    line, and a network without it puts it on none."""
+    net = BftTestNetwork(device="cpu", **kw)
+    assert all("--pre-execution" in net.replica_argv(r)
+               for r in range(net.n))
+    assert not any("--pre-execution" in BftTestNetwork(
+        device="cpu").replica_argv(r) for r in range(4))
 
 
 @pytest.mark.parametrize("call, step", [

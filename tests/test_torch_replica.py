@@ -174,36 +174,39 @@ def test_device_route_on_cpu_tensors_gives_the_same_replies(monkeypatch):
             assert v.degraded == 0
 
 
+# Both planes are ported (the read tier in A.9.4's first part,
+# pre-execution in A.9.4b): each case (its name kept from when they were
+# refused) builds the cluster and checks the plane is attached.
 _PLANES = {
+    # every replica builds its preprocessor, whose pool Replica.stop
+    # shuts down
     "pre_execution_enabled": (dict(PLANES_OFF, pre_execution_enabled=True),
-                              "pre_execution"),
-    # ported (A.9.4, first part): the cluster builds, and every ledger
-    # replica attaches its thin-replica server
+                              lambda r: r.preprocessor is not None
+                              and not r.preprocessor._pool._shutdown),
+    # every ledger replica attaches its thin-replica server
     "thin_replica_enabled": (dict(PLANES_OFF, thin_replica_enabled=True),
-                             None),
+                             lambda r: r.thin_replica is not None
+                             and r.thin_replica.port),
 }
 
 
 @pytest.mark.parametrize("plane", sorted(_PLANES))
 def test_unported_plane_refuses_to_start(plane):
-    overrides, word = _PLANES[plane]
-    if word is None:
-        from tpubft_torch.apps.skvbc import SkvbcHandler
-        from tpubft_torch.kvbc import KeyValueBlockchain
-        from tpubft_torch.storage import MemoryDB
+    from tpubft_torch.apps.skvbc import SkvbcHandler
+    from tpubft_torch.kvbc import KeyValueBlockchain
+    from tpubft_torch.storage import MemoryDB
+    overrides, attached = _PLANES[plane]
 
-        def hf(_r=None):
-            return SkvbcHandler(KeyValueBlockchain(
-                MemoryDB(), use_device_hashing=False))
-        with PortCluster(f=1, num_clients=1, handler_factory=hf,
-                         cfg_overrides=dict(overrides,
-                                            crypto_backend="cpu")) as cl:
-            assert all(r.thin_replica is not None and r.thin_replica.port
-                       for r in cl.replicas.values())
-        return
-    with pytest.raises(NotImplementedError, match=word):
-        PortCluster(f=1, num_clients=1, cfg_overrides=dict(
-            overrides, crypto_backend="cpu"))
+    def hf(_r=None):
+        return SkvbcHandler(KeyValueBlockchain(
+            MemoryDB(), use_device_hashing=False))
+    with PortCluster(f=1, num_clients=1, handler_factory=hf,
+                     cfg_overrides=dict(overrides,
+                                        crypto_backend="cpu")) as cl:
+        assert all(attached(r) for r in cl.replicas.values())
+        reps = list(cl.replicas.values())
+    if plane == "pre_execution_enabled":
+        assert all(r.preprocessor._pool._shutdown for r in reps)
 
 
 @pytest.mark.parametrize("pipeline", [True, False])

@@ -31,10 +31,10 @@ import sys
 import time
 
 from tpubft_torch.apps.simple_test import (add_device_args, add_scheme_args,
-                                           endpoint_table, select_device)
+                                           endpoint_table, not_ported,
+                                           select_device)
 from tpubft_torch.comm import CommConfig, create_communication
 from tpubft_torch.consensus.keys import ClusterKeys
-from tpubft_torch.consensus.replica import _not_ported
 from tpubft_torch.kvbc.readonly import ReadOnlyReplica
 from tpubft_torch.storage.objectstore import FsObjectStore
 from tpubft_torch.utils.config import ReplicaConfig
@@ -81,7 +81,7 @@ def make_parser() -> argparse.ArgumentParser:
 
 def build_ro_replica(args, agg: Aggregator) -> ReadOnlyReplica:
     if args.prom_port is not None:
-        _not_ported("--prom-port", "A.9.5")
+        not_ported("--prom-port", "A.9.5")
     kw = dict(replica_id=args.replica, f_val=args.f, c_val=args.c,
               num_ro_replicas=args.ro,
               num_of_client_proxies=args.clients,

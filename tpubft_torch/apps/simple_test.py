@@ -41,6 +41,16 @@ PORT_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
+def not_ported(option: str, item: str):
+    """Port divergence: an option of a plane whose modules the port does
+    not carry yet. A replica or network given it is refused before it is
+    built, never silently run without it; `item` names the ROADMAP entry
+    that ports it."""
+    raise NotImplementedError(
+        f"{option}: this plane is not ported to tpubft_torch yet "
+        f"(ROADMAP {item}); leave it off")
+
+
 def endpoint_table(base_port: int, n: int, num_clients: int,
                    operator_id: int = None) -> Dict[int, Tuple[str, int]]:
     eps = {r: ("127.0.0.1", base_port + r) for r in range(n)}

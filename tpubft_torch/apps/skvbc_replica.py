@@ -19,9 +19,10 @@ Port divergences (reference skvbc_replica.py:27-193):
 - `--crypto-backend` takes cuda|cpu|auto and defaults to cuda (the
   reference's default is cpu).
 - The options of planes the port does not carry yet are refused with
-  the ROADMAP step that ports them: `--pre-execution` (A.9.4),
-  `--prom-port` (A.9.5) and `--fault-port` (A.9.6). `--trs-port` serves
-  the thin-replica read tier, as the reference does. `--db-dir`
+  the ROADMAP step that ports them: `--prom-port` (A.9.5) and
+  `--fault-port` (A.9.6). `--trs-port` serves the thin-replica read
+  tier and `--pre-execution` turns on the preprocessor, as the
+  reference's do. `--db-dir`
   keeps the ledger and the consensus metadata in
   `DIR/replica-<id>.kvlog`, as the reference does; without it they
   live in memory.
@@ -40,10 +41,10 @@ import sys
 import time
 
 from tpubft_torch.apps.simple_test import (add_device_args, add_scheme_args,
-                                           endpoint_table, select_device)
+                                           endpoint_table, not_ported,
+                                           select_device)
 from tpubft_torch.comm import CommConfig, create_communication
 from tpubft_torch.consensus.keys import ClusterKeys
-from tpubft_torch.consensus.replica import _not_ported
 from tpubft_torch.kvbc.replica import KvbcReplica
 from tpubft_torch.utils.config import ReplicaConfig
 from tpubft_torch.utils.metrics import Aggregator, UdpMetricsServer
@@ -53,11 +54,10 @@ def refuse_unported(args) -> None:
     """Port divergence: refuse, before anything is built, every option
     whose plane is not ported yet, naming its ROADMAP step."""
     for flag, on, step in (
-            ("--pre-execution", args.pre_execution, "A.9.4"),
             ("--prom-port", args.prom_port is not None, "A.9.5"),
             ("--fault-port", args.fault_port is not None, "A.9.6")):
         if on:
-            _not_ported(flag, step)
+            not_ported(flag, step)
 
 
 def build_replica(args, comm_wrapper=None) -> KvbcReplica:
@@ -184,7 +184,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--crypto-backend", default="cuda",
                    choices=("cuda", "cpu", "auto"))
     p.add_argument("--pre-execution", action="store_true",
-                   help="not ported: A.9.4")
+                   help="pre-execute PRE_PROCESS requests before ordering")
     p.add_argument("--merkle", action="store_true",
                    help="keep SKVBC state in a BLOCK_MERKLE category "
                         "(provable reads)")

@@ -70,24 +70,6 @@ from tpubft_torch.utils.racecheck import make_lock
 log = get_logger("replica")
 
 
-def _not_ported(option: str, item: str):
-    """Port divergence: a plane whose modules the port does not carry
-    yet. A config that turns it on is refused when the replica is built,
-    never silently run without it; `item` names the ROADMAP entry that
-    ports it."""
-    raise NotImplementedError(
-        f"{option}: this plane is not ported to tpubft_torch yet "
-        f"(ROADMAP {item}); turn it off to build a port Replica")
-
-
-def _refuse_unported_planes(cfg: ReplicaConfig) -> None:
-    """Port divergence: every plane listed here is refused before the
-    replica builds any thread-owning part. The reference's sites are
-    named beside each check."""
-    if cfg.pre_execution_enabled:           # reference replica.py:567
-        _not_ported("pre_execution_enabled", "A.9")
-
-
 def share_digest(kind: str, epoch: int, view: int, seq_num: int,
                  pp_digest: bytes) -> bytes:
     """Domain-separated digest each threshold share signs: 'prepare' and
@@ -150,7 +132,6 @@ class Replica(IReceiver):
                  aggregator: Optional[Aggregator] = None,
                  reserved_pages=None):
         cfg.validate()
-        _refuse_unported_planes(cfg)
         self.cfg = cfg
         self.id = cfg.replica_id
         self.info = ReplicasInfo.from_config(cfg)
@@ -605,10 +586,11 @@ class Replica(IReceiver):
             "preexec_conflicts")
         self.m_preexec_applied = self.preexec_metrics.register_counter(
             "preexec_applied")
-        # Port divergence (reference replica.py:567-570): the
-        # preprocessor is not ported; _refuse_unported_planes refused
-        # pre_execution_enabled above.
         self.preprocessor = None
+        if cfg.pre_execution_enabled:
+            from tpubft_torch.preprocessor import PreProcessor
+            self.preprocessor = PreProcessor(
+                self, num_threads=cfg.preexec_threads)
 
         # thin-replica read tier (reference thin-replica-server, gated
         # on config): reads/subscriptions served off the consensus path,
@@ -1673,15 +1655,10 @@ class Replica(IReceiver):
             return
         for r in reqs:
             if r.flags & m.RequestFlag.HAS_PRE_PROCESSED:
-                # Port divergence (reference replica.py:1611-1615): the
-                # preprocessor is not ported, so no port replica can
-                # check a pre-executed result's f+1 signatures, and an
-                # honest port primary never proposes one: refuse the
-                # batch (no share is signed over it).
-                log.warning("PrePrepare seq=%d carries a pre-processed "
-                            "request; pre-execution is not ported",
-                            pp.seq_num)
-                return
+                from tpubft_torch.preprocessor.preprocessor import (
+                    validate_preprocessed_request)
+                if not validate_preprocessed_request(self, r):
+                    return
             if not self.clients.is_valid_client(r.sender_id):
                 return
             # a byzantine primary must not smuggle INTERNAL-flagged ops
@@ -2640,10 +2617,37 @@ class Replica(IReceiver):
             return (self.reconfig.execute(self, req, seq)
                     if self.reconfig is not None else b"")
         if req.flags & m.RequestFlag.HAS_PRE_PROCESSED:
-            # Port divergence (reference replica.py:2572-2573): no port
-            # replica accepts such a batch (see _on_pre_prepare), so a
-            # committed one means a mixed cluster the port cannot run.
-            _not_ported("pre-processed request", "A.9")
+            from tpubft_torch.preprocessor.preprocessor import (
+                unpack_preprocessed)
+            try:
+                orig, result = unpack_preprocessed(req.request)
+            except Exception:  # noqa: BLE001 — malformed wrapper
+                return b""
+            # conflict detection at commit (reference verifyWriteCommand
+            # at execution): re-validate the pre-executed result's
+            # read-set version watermark against CURRENT state — the
+            # speculation ran against an older snapshot. On conflict the
+            # request falls back to NORMAL ORDERING: the original
+            # request executes in this same committed slot (identical
+            # total-order position, so ledgers stay byte-identical with
+            # a pure-ordering run), and the flight event + counter make
+            # the conflict rate observable for tuning.
+            try:
+                conflicted = self.handler.pre_exec_conflicted(
+                    orig.sender_id, orig.req_seq_num, orig.request,
+                    result)
+            except Exception:  # noqa: BLE001 — advisory check only
+                conflicted = False
+            if conflicted:
+                flight.record(flight.EV_PREEXEC_CONFLICT, seq=seq)
+                self.m_preexec_conflicts.inc()
+                return self.handler.execute(
+                    orig.sender_id, orig.req_seq_num, orig.flags,
+                    orig.request)
+            self.m_preexec_applied.inc()
+            return self.handler.apply_pre_executed(
+                orig.sender_id, orig.req_seq_num, orig.flags,
+                orig.request, result)
         with TimeRecorder(self._h_execute):
             return self.handler.execute(req.sender_id, req.req_seq_num,
                                         req.flags, req.request)

@@ -24,7 +24,8 @@ Port divergences (reference network.py:70-491):
 - Replicas run without `--fault-port`; the per-link faults (A.9.6) and
   `operator_client` (A.9.4) raise NotImplementedError. Every replica
   serves the thin-replica read tier at `trs_base + r` (`--trs-port`),
-  as the reference's do.
+  and with `pre_execution=True` pre-executes (`--pre-execution`), as
+  the reference's do.
 - `start_ro_replica` spawns `python -m tpubft_torch.apps.ro_replica`
   with the network's `--device`, `--diag-port` and TLS material; its
   output goes to `ro-<id>.log` in the log directory.
@@ -57,12 +58,11 @@ import time
 import weakref
 from typing import Dict, Iterable, List, Optional, Tuple
 
-from tpubft_torch.apps.simple_test import child_env, endpoint_table
+from tpubft_torch.apps.simple_test import child_env, endpoint_table, not_ported
 from tpubft_torch.apps.skvbc import SkvbcClient
 from tpubft_torch.bftclient import BftClient, ClientConfig
 from tpubft_torch.comm import CommConfig, create_communication
 from tpubft_torch.consensus.keys import ClusterKeys
-from tpubft_torch.consensus.replica import _not_ported
 from tpubft_torch.utils.config import ReplicaConfig
 
 
@@ -227,8 +227,6 @@ class BftTestNetwork:
                  device: str = "cuda",
                  log_dir: Optional[str] = None,
                  kvbc_version: str = "categorized") -> None:
-        if pre_execution:
-            _not_ported("BftTestNetwork(pre_execution=True)", "A.9.4")
         self.f, self.c = f, c
         self.n = 3 * f + 2 * c + 1
         self.num_ro = num_ro
@@ -243,6 +241,7 @@ class BftTestNetwork:
         self.threshold_scheme = threshold_scheme
         self.client_sig_scheme = client_sig_scheme
         self.device_min_verify_batch = device_min_verify_batch
+        self.pre_execution = pre_execution
         self.merkle = merkle     # BLOCK_MERKLE skvbc state
         # arbitrary ReplicaConfig fields, forwarded to every replica
         # process as --config-override FIELD=VALUE
@@ -389,10 +388,10 @@ class BftTestNetwork:
             raise
         return self
 
-    def start_replica(self, r: int,
-                      extra_args: Optional[List[str]] = None,
-                      extra_env: Optional[Dict[str, str]] = None) -> None:
-        assert r not in self.procs or self.procs[r].poll() is not None
+    def replica_argv(self, r: int,
+                     extra_args: Optional[List[str]] = None) -> List[str]:
+        """Replica r's command line, as start_replica spawns it. Port
+        addition (the reference builds it inside start_replica)."""
         args = [sys.executable, "-m", "tpubft_torch.apps.skvbc_replica",
                 "--replica", str(r), "--f", str(self.f), "--c", str(self.c),
                 "--ro", str(self.num_ro),
@@ -419,10 +418,19 @@ class BftTestNetwork:
                      str(self.device_min_verify_batch)]
         for k, v in self.cfg_overrides.items():
             args += ["--config-override", f"{k}={v}"]
+        if self.pre_execution:
+            args += ["--pre-execution"]
         if self.merkle:
             args += ["--merkle"]
         if self.db_dir:
             args += ["--db-dir", self.db_dir]
+        return args
+
+    def start_replica(self, r: int,
+                      extra_args: Optional[List[str]] = None,
+                      extra_env: Optional[Dict[str, str]] = None) -> None:
+        assert r not in self.procs or self.procs[r].poll() is not None
+        args = self.replica_argv(r, extra_args)
         if self.log_dir:
             os.makedirs(self.log_dir, exist_ok=True)
             out = open(os.path.join(self.log_dir, f"replica-{r}.log"), "ab")
@@ -539,23 +547,23 @@ class BftTestNetwork:
 
     # ---- per-link faults: the fault-injection plane is ROADMAP A.9.6 ----
     def drop_link(self, frm: int, to: int) -> None:
-        _not_ported("BftTestNetwork.drop_link", "A.9.6")
+        not_ported("BftTestNetwork.drop_link", "A.9.6")
 
     def isolate_replica(self, r: int, peers=None) -> None:
-        _not_ported("BftTestNetwork.isolate_replica", "A.9.6")
+        not_ported("BftTestNetwork.isolate_replica", "A.9.6")
 
     def deafen_replica(self, r: int) -> None:
-        _not_ported("BftTestNetwork.deafen_replica", "A.9.6")
+        not_ported("BftTestNetwork.deafen_replica", "A.9.6")
 
     def set_loss(self, r: int, loss: float) -> None:
-        _not_ported("BftTestNetwork.set_loss", "A.9.6")
+        not_ported("BftTestNetwork.set_loss", "A.9.6")
 
     def set_delay(self, r: int, delay_ms: float,
                   jitter_ms: float = 0.0) -> None:
-        _not_ported("BftTestNetwork.set_delay", "A.9.6")
+        not_ported("BftTestNetwork.set_delay", "A.9.6")
 
     def heal(self, r: Optional[int] = None) -> None:
-        _not_ported("BftTestNetwork.heal", "A.9.6")
+        not_ported("BftTestNetwork.heal", "A.9.6")
 
     # ------------------------------------------------------------------
     # observation
@@ -677,7 +685,7 @@ class BftTestNetwork:
 
     def operator_client(self, **cfg_kw):
         """The reconfiguration plane's operator is ROADMAP A.9.4."""
-        _not_ported("BftTestNetwork.operator_client", "A.9.4")
+        not_ported("BftTestNetwork.operator_client", "A.9.4")
 
     def __enter__(self) -> "BftTestNetwork":
         return self.start_all()
